@@ -9,18 +9,24 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
 
 1. print the card (``nvidia-smi`` name and power limit), build the CUDA
    kernel library from the package's ``csrc/*.cu`` and print the build time;
-2. build the slice's hierarchy (Dirichlet square_with_circle, deg 6, kd-tile
-   ordering, 512-row assembly blocks, sizes 2500/10000/35000/150000) and
-   hold every kernel against its plain PyTorch version on the same inputs
-   on the card: ``ell_spmv`` (f32 and f64) on the fine and coarsest levels,
-   one restriction and one prolongation; ``block_oneshot_sweep`` (f32 and
+2. build the slice's hierarchies (square_with_circle, deg 6, kd-tile
+   ordering, 512-row assembly blocks, sizes 2500/10000/35000/150000;
+   Dirichlet, then Neumann) and hold every kernel against its plain PyTorch
+   version on the same inputs on the card: on the Dirichlet hierarchy
+   ``ell_spmv`` (f32 and f64) on the fine and coarsest levels, one
+   restriction and one prolongation, and ``block_oneshot_sweep`` (f32 and
    f64) on the fine level in colored order and on the coarsest level in
-   storage order.  Prints each comparison's relative error and both times;
-3. run the port's ``solve`` entry point in-process on that configuration
-   (one untimed outer pass, then the timed solve), print its SolveRecord,
-   and check: level kernels ``[v7-exact, v8-colored x3]``; every kernel role
-   launched during the solve; relative L1 residual < 1e-8, re-checked from
-   the returned solution with the plain f64 SpMV; L1 error < 1e-6;
+   storage order; on the Neumann hierarchy ``compact_rows`` (f32 and f64)
+   on the fine level's boundary table (re-solve) and condensation table
+   (pushdown).  Prints each comparison's relative error and both times;
+3. run the port's ``solve`` entry point in-process on both configurations
+   (one untimed outer pass, then the timed solve; launch counters set to 0
+   before each run and read after it), print each SolveRecord, and check:
+   level kernels ``[v7-exact, v8-colored x3]``; every kernel role of the
+   path launched (Dirichlet: the four SpMV and sweep roles; Neumann: those
+   and both ``compact_rows`` roles); relative L1 residual < 1e-8,
+   re-checked from the returned (x, x_lag) with the plain f64 SpMV, border
+   row included; L1 error < 1e-6;
 4. print a JSON line of per-kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -52,13 +58,21 @@ ROLES = {
     "sweep8": ("block_oneshot_sweep",
                "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels8.py:428"),
+    "bound2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
+               "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
+    "push2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
+              "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
 }
+DIRICHLET_ROLES = ("spmv6", "spmv8", "sweep7", "sweep8")
 # tolerances, relative to max |plain output|.  f32: the kernel sums a row in
 # another order than the plain gather-sum (warp-shuffle tree vs sequential),
 # ~70 products of ~1e5-scale weights with cancellation; a sweep adds the
 # 128-term K product on top.  f64: the same reorderings at 1e-16 per op.
+# compact_rows is a gather-sum like the SpMV (its re-solve epilogue adds
+# two operations per row): the SpMV's tolerances.
 TOL = {("spmv", "f32"): 1e-5, ("spmv", "f64"): 1e-12,
-       ("sweep", "f32"): 1e-4, ("sweep", "f64"): 1e-11}
+       ("sweep", "f32"): 1e-4, ("sweep", "f64"): 1e-11,
+       ("compact", "f32"): 1e-5, ("compact", "f64"): 1e-12}
 
 
 def fail(msg: str) -> int:
@@ -79,6 +93,34 @@ def time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def bordered_residual(op, b, b_lag, x, x_lag) -> float:
+    """Relative L1 residual of the bordered fine system, recomputed from
+    (x, x_lag) with the plain f64 gather-sum SpMV on ``x``'s device:
+    (||b - A x - lag_col x_lag||_1 + |b_lag - lag_row.x - x_lag|)
+    / (||b||_1 + |b_lag|), Dirichlet rows as identity rows x = g.  ``op`` is
+    the host f64 LevelOperator; without a border the border terms vanish."""
+    import torch
+
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+    from meshlessmultigridpoisson_torch.ops.ell import global_cols
+
+    dev = x.device
+
+    def f(v):
+        return torch.as_tensor(v).to(device=dev, dtype=torch.float64)
+
+    dmask = op.dirichlet_mask.to(dev) > 0
+    b, b_lag, x_lag = torch.where(dmask, f(op.dirichlet_values), f(b)), f(b_lag), f(x_lag)
+    y = gk.ell_spmv_plain(f(op.A.vals), global_cols(op.A).to(dev), x)
+    r_lag = torch.zeros((), dtype=torch.float64, device=dev)
+    if op.has_lagrange:
+        y = y + f(op.lag_col) * x_lag
+        r_lag = b_lag - (f(op.lag_row) * x).sum() - x_lag
+    y = torch.where(dmask, x, y)
+    return float(((b - y).abs().sum() + r_lag.abs())
+                 / (b.abs().sum() + b_lag.abs()))
 
 
 def main(argv=None) -> int:
@@ -193,48 +235,87 @@ def main(argv=None) -> int:
     del g32, coarse64, fine64, hier, prob
     torch.cuda.empty_cache()
 
-    # ---- 3. the main path through the CLI entry point -----------------------
+    def check_compact(label, C):
+        n = C.n_pad
+        x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, C.vals.dtype)
+        b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, C.vals.dtype)
+        xin = x0 if C.role == "bound2" else b  # pushdown: the gather reads b
+        before = gk.COUNTS[C.role]
+        out = gk.compact_rows(C, xin.clone(), b)
+        torch.cuda.synchronize()
+        if gk.COUNTS[C.role] != before + 1:
+            raise AssertionError(f"compact_rows {label}: no launch counted")
+        ref = gk.compact_rows_plain(C, xin.clone(), b)
+        err = float((out - ref).abs().max())
+        xs = xin.clone()
+        ms = time_ms(lambda: gk.compact_rows(C, xs, b), 200)
+        pms = time_ms(lambda: gk.compact_rows_plain(C, xs, b), 50)
+        dt = "f32" if C.vals.dtype == torch.float32 else "f64"
+        record(C.role, f"compact_rows {dt} {label} ({C.nrows} of {C.m_pad} rows, "
+               f"width {C.width})", dt, err, float(ref.abs().max()), ms, pms,
+               "compact")
+
+    t0 = time.perf_counter()
+    prob = make_poisson_problem(**geom, neumann=True, device=dev)
+    fine = prob.hierarchy.levels[-1]
+    torch.cuda.synchronize()
+    print(f"phase-2 Neumann setup {time.perf_counter() - t0:.1f} s, sizes "
+          f"{[c.n for c in prob.clouds]}", flush=True)
+    for dt in (torch.float32, torch.float64):
+        check_compact("fine boundary re-solve",
+                      gk.device_compact(fine.bound, dt, dev, "bound2"))
+        check_compact("fine condensation pushdown",
+                      gk.device_compact(fine.cond, dt, dev, "push2"))
+    del prob, fine
+    torch.cuda.empty_cache()
+
+    # ---- 3. the main paths through the CLI entry point -----------------------
     argv_solve = ["solve", "--device", "cuda", "--geom", "square_with_circle",
                   "--sizes", *map(str, args.sizes), "--deg", "6",
                   "--ordering", "kdtile", "--block-rows", "512", "--tol", "1e-8"]
-    print("main path: python -m meshlessmultigridpoisson_torch.apps.cli "
-          + " ".join(argv_solve), flush=True)
-    gk.reset_counts()
-    rec, prob, x = cli.run_solve(argv_solve)
-    torch.cuda.synchronize()
-    launches = dict(gk.COUNTS)
-    print(rec.to_json(), flush=True)
-    print(f"launches during the main path: {launches}", flush=True)
+    launches = {}
+    for path, extra, roles in (("dirichlet", [], DIRICHLET_ROLES),
+                               ("neumann", ["--neumann"], tuple(ROLES))):
+        argv = argv_solve + extra
+        print(f"main path ({path}): python -m meshlessmultigridpoisson_torch.apps.cli "
+              + " ".join(argv), flush=True)
+        gk.reset_counts()
+        rec, prob, x, xl = cli.run_solve(argv)
+        torch.cuda.synchronize()
+        launches[path] = dict(gk.COUNTS)
+        print(rec.to_json(), flush=True)
+        print(f"launches during the {path} main path: {launches[path]}", flush=True)
 
-    kinds = rec.extra["level_kernels"]
-    if args.sizes == SLICE_SIZES and kinds != EXPECT_KERNELS:
-        return fail(f"level kernels {kinds} != {EXPECT_KERNELS}")
-    idle = [r for r, n in launches.items() if n == 0]
-    if idle:
-        return fail(f"kernel roles never launched on the main path: {idle}")
-    if not rec.final_residual < 1e-8:
-        return fail(f"final residual {rec.final_residual:.3e} >= 1e-8")
-    # independent re-check: plain f64 gather-sum SpMV on the returned x
-    op = prob.hierarchy.levels[-1]
-    A = device_ell(op.A, torch.float64, dev, "spmv8")
-    dmask = op.dirichlet_mask.to(dev) > 0
-    bf = torch.where(dmask, op.dirichlet_values.to(dev), prob.state0.b[-1].to(dev))
-    y = torch.where(dmask, x, gk.ell_spmv_plain(A.vals, A.cols, x))
-    recheck = float((bf - y).abs().sum() / bf.abs().sum())
-    print(f"re-checked relative L1 residual (plain f64 SpMV): {recheck:.3e}",
-          flush=True)
-    if not recheck < 1e-8:
-        return fail(f"re-checked residual {recheck:.3e} >= 1e-8")
-    if not rec.l1_error < 1e-6:
-        return fail(f"l1_error {rec.l1_error:.3e} >= 1e-6")
+        kinds = rec.extra["level_kernels"]
+        if args.sizes == SLICE_SIZES and kinds != EXPECT_KERNELS:
+            return fail(f"{path}: level kernels {kinds} != {EXPECT_KERNELS}")
+        idle = [r for r in roles if launches[path][r] == 0]
+        if idle:
+            return fail(f"{path}: kernel roles never launched on the main path: {idle}")
+        if not rec.final_residual < 1e-8:
+            return fail(f"{path}: final residual {rec.final_residual:.3e} >= 1e-8")
+        # independent re-check: plain f64 gather-sum SpMV on the returned
+        # (x, x_lag), against the host-built right-hand side
+        recheck = bordered_residual(prob.hierarchy.levels[-1], prob.state0.b[-1],
+                                    prob.state0.b_lag[-1], x, xl)
+        print(f"{path}: re-checked relative L1 residual (plain f64 SpMV, border "
+              f"row included): {recheck:.3e}", flush=True)
+        if not recheck < 1e-8:
+            return fail(f"{path}: re-checked residual {recheck:.3e} >= 1e-8")
+        if not rec.l1_error < 1e-6:
+            return fail(f"{path}: l1_error {rec.l1_error:.3e} >= 1e-6")
+        del rec, prob, x, xl
+        torch.cuda.empty_cache()
 
     # ---- 4. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
+        by_path = {p: n[role] for p, n in launches.items()}
         for c in results[role]:
             kernels.append(dict(name=f"{name} [{role}] {c['label']}", route="cuda",
                                 source=source, replaces=replaces,
-                                launches=launches[role],
+                                launches=sum(by_path.values()),
+                                launches_by_path=by_path,
                                 max_abs_err=c["max_abs_err"],
                                 ms=c["ms"], plain_ms=c["plain_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,12 +2,14 @@
 
     python -m meshlessmultigridpoisson_torch.apps.cli solve --device cuda \\
         --geom square_with_circle --sizes 2500 10000 35000 150000 --deg 6 \\
-        --ordering kdtile --block-rows 512 --tol 1e-8
+        --ordering kdtile --block-rows 512 --tol 1e-8 [--neumann]
 
 Flow (the reference package's ``solve --platform tpu``): f64 host setup
-(clouds, kNN, ordering, RBF-FD weights on ``--device``, assembly,
-coloring, stabilization, transfers) -> repack into the kernels' layouts on
-``--device`` (mg/gpu_backend.py) -> mixed-precision defect correction
+(clouds, kNN, ordering, RBF-FD weights on ``--device``, assembly with
+Neumann condensation, coloring, stabilization, transfers) -> repack into
+the kernels' layouts on ``--device`` (mg/gpu_backend.py) -> the fine
+right-hand side on the device (with ``--neumann``: boundary data and the
+condensation pushdown) -> mixed-precision defect correction
 (mg/mixed.py) with an f64 outer residual and an f32 V-cycle-preconditioned
 BiCGStab inside.  One outer pass runs untimed first, then the timed solve.
 
@@ -34,6 +36,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--sizes", type=int, nargs="+", default=[600, 2500])
     p.add_argument("--deg", type=int, default=4)
     p.add_argument("--k", type=int, default=1, help="manufactured wavenumber")
+    p.add_argument("--neumann", action="store_true",
+                   help="Neumann boundaries (Lagrange border, implicit "
+                        "condensation) instead of Dirichlet")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ordering", default="rcm", choices=["rcm", "kdtile"])
     p.add_argument("--block-rows", type=int, default=256,
@@ -100,8 +105,9 @@ def _device_profile(solve, dev) -> dict:
 
 
 def run_solve(argv=None):
-    """Parse ``solve`` arguments and run it; returns (record, problem, x64)
-    with x64 the f64 solution in the fine level's permuted padded rows."""
+    """Parse ``solve`` arguments and run it; returns (record, problem, x64,
+    x_lag64): the f64 solution in the fine level's permuted padded rows and
+    the Lagrange unknown (0 on Dirichlet problems)."""
     import torch
 
     from meshlessmultigridpoisson_torch.mg import mixed
@@ -110,6 +116,7 @@ def run_solve(argv=None):
         gpu_level_from_operator,
     )
     from meshlessmultigridpoisson_torch.models.poisson import (
+        fine_rhs,
         l1_error,
         make_poisson_problem,
     )
@@ -123,23 +130,24 @@ def run_solve(argv=None):
     with Timer() as t_setup:
         prob = make_poisson_problem(
             args.geom, sizes=list(args.sizes), poly_deg=args.deg, k1=args.k,
-            seed=args.seed, ordering=args.ordering,
+            neumann=args.neumann, seed=args.seed, ordering=args.ordering,
             block_rows=args.block_rows, device=dev,
         )
         ghier = gpu_hierarchy(prob.hierarchy, dev)
         op64 = gpu_level_from_operator(prob.hierarchy.levels[-1], dev,
                                        dtype=torch.float64, sweep=False)
+        # the solve's right-hand side, its pushdown on the device's f64 tables
+        b = fine_rhs(op64, prob.source, prob.neumann)
+        bl = prob.state0.b_lag[-1].to(dev)
         _sync(dev)
     log(f"setup: {t_setup.elapsed:.1f}s")
-    b = prob.state0.b[-1].to(dev)
-    bl = prob.state0.b_lag[-1].to(dev)
 
     device_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu")
     rec = SolveRecord(
         name=f"poisson-{args.geom}-{dev.type}",
         config=dict(sizes=[c.n for c in prob.clouds], deg=args.deg, k=args.k,
-                    neumann=False, solver="mixed-defect", tol=args.tol,
+                    neumann=args.neumann, solver="mixed-defect", tol=args.tol,
                     platform=dev.type, ordering=args.ordering,
                     block_rows=args.block_rows),
     )
@@ -175,11 +183,11 @@ def run_solve(argv=None):
                                               tol=args.tol), dev)
     if args.out:
         rec.save(args.out)
-    return rec, prob, x
+    return rec, prob, x, xl
 
 
 def main(argv=None):
-    rec, _, _ = run_solve(argv)
+    rec, *_ = run_solve(argv)
     print(rec.to_json())
     return rec
 

@@ -12,18 +12,19 @@ the kernels' layouts on ``device``:
   in, and the block execution order — colored (one phase per color) on
   levels with at least 32 blocks of 128 rows ("v8-colored", the reference's
   ``prepare_colored_sweep`` threshold), storage order otherwise
-  ("v7-exact").
+  ("v7-exact");
+* the Neumann boundary rows (``bound``) and the condensation rows
+  (``cond``) as compact tables for ``compact_rows``, and the Lagrange
+  rank-1 border (``lag_col``, ``lag_row``) as vectors.
 
-Semantics match the reference backend: same (block, class) Gauss-Seidel
-in the kernels' precision (f32 by default;
-tight tolerances come from the f64 outer loop of mg/mixed.py).  On CPU
-tensors the kernels' plain PyTorch versions run instead, so ``--device cpu``
-exercises the identical flow.
-
-Levels with Neumann rows (boundary re-solve, condensation pushdown) need
-the reference's ``spmv_tpu2`` compact-row kernel, which is not ported yet:
-``gpu_level_from_operator`` raises for them rather than run a plain path on
-the device.
+Semantics match the reference backend: same (block, class) Gauss-Seidel,
+then the Lagrange-row relax, then the exact Neumann boundary-row re-solve,
+after every sweep; the same bordered matvec and RHS pushdown — in the
+kernels' precision (f32 by default; tight tolerances come from the f64
+outer loop of mg/mixed.py).  On CPU tensors the kernels' plain PyTorch
+versions run instead, so ``--device cpu`` exercises the identical flow.
+The Lagrange unknown stays a 0-dim tensor on the device throughout: the
+sweep loop adds no host sync.
 """
 
 from __future__ import annotations
@@ -38,16 +39,19 @@ from meshlessmultigridpoisson_torch.ops.ell import global_cols
 from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     LANES,
     BlockSweep,
+    DeviceCompact,
     DeviceEll,
     block_oneshot_sweep,
     block_patches,
     build_oneshot_K,
     color_blocks,
     colored_order,
+    compact_rows,
+    device_compact,
     device_ell,
     ell_spmv,
 )
-from meshlessmultigridpoisson_torch.stencil.operators import LevelOperator
+from meshlessmultigridpoisson_torch.stencil.operators import CompactRows, LevelOperator
 
 # below this many 128-row blocks the colored sweep loses to the storage-order
 # chain (reference ops/kernels8.py prepare_colored_sweep, min_blocks=32)
@@ -56,22 +60,25 @@ MIN_COLORED_BLOCKS = 32
 
 @dataclasses.dataclass(frozen=True)
 class GpuLevel:
-    """Per-level data in kernel-ready layouts on one device.
-
-    Only Dirichlet levels exist here (Neumann levels are refused at
-    construction), so the Lagrange border, the Neumann row re-solve and the
-    RHS pushdown are absent: ``has_lagrange`` is always False.
-    """
+    """Per-level data in kernel-ready layouts on one device (the fields of
+    the reference's ``TpuLevel`` that the solve path reads)."""
 
     A: DeviceEll
     sweep: BlockSweep | None  # None: matvec-only (the f64 outer operator)
+    bound: DeviceCompact  # Neumann boundary rows ("bound2"; empty if none)
+    cond: DeviceCompact  # condensation rows C = S D^-1 ("push2")
+    lag_col: torch.Tensor  # [n_pad] Lagrange border column
+    lag_row: torch.Tensor  # [n_pad] Lagrange border row
     smooth_mask: torch.Tensor  # [n_pad]
     dirichlet_mask: torch.Tensor
+    neumann_mask: torch.Tensor
     dirichlet_values: torch.Tensor
+    neumann_values: torch.Tensor
     row_map: torch.Tensor  # [n] int64: logical -> permuted row
+    has_lagrange: bool
+    implicit: bool
+    omega: float
     iters: int
-
-    has_lagrange = False
 
     @property
     def n_pad(self) -> int:
@@ -93,19 +100,41 @@ class GpuLevel:
         return v_padded[self.row_map]
 
 
+def check_resolve_in_place(bound: CompactRows) -> None:
+    """Raise unless no boundary row reads another boundary row's unknown.
+
+    The ``compact_rows`` re-solve writes each target row while other rows
+    may still gather; that equals the reference's compute-all-then-scatter
+    only if no row's non-zero entry (padding entries carry 0 and any valid
+    column) sits in the column of another target row.  Neumann stencils
+    exclude other boundary points, so this holds by construction.
+    """
+    m = bound.nrows
+    if m == 0:
+        return
+    rows = bound.rows[:m].numpy().astype(np.int64)
+    gc = global_cols(bound.ell)[:m].numpy().astype(np.int64)
+    target = np.zeros(bound.ell.ncols, dtype=bool)
+    target[rows] = True
+    hit = (bound.ell.vals[:m].numpy() != 0) & target[gc] & (gc != rows[:, None])
+    if hit.any():
+        i = int(np.nonzero(hit.any(axis=1))[0][0])
+        raise ValueError(
+            f"{int(hit.sum())} entries of the Neumann boundary rows read "
+            f"another boundary row (first: compact row {i}, target row "
+            f"{rows[i]}); the in-place compact_rows re-solve needs boundary "
+            "stencils that exclude other boundary points")
+
+
 def gpu_level_from_operator(
     op: LevelOperator, device, dtype=torch.float32, sweep: bool = True
 ) -> GpuLevel:
     """Repack a host LevelOperator for the kernels (``sweep=False``: matvec
-    tables only, as for the f64 outer residual operator)."""
-    if op.has_lagrange or op.bound.nrows > 0 or op.cond.nrows > 0:
-        raise NotImplementedError(
-            f"level n={op.n} has {op.bound.nrows} Neumann boundary rows and "
-            f"{op.cond.nrows} condensation rows; their device path (the "
-            "reference's compact-row kernel spmv_tpu2, ops/kernels.py, and "
-            "the Lagrange border) is not ported yet")
+    tables only, as for the f64 outer residual operator).  Raises on a
+    layout the kernels cannot take."""
     if op.n_pad % LANES:
         raise ValueError(f"n_pad={op.n_pad} is not a multiple of {LANES}")
+    check_resolve_in_place(op.bound)
     device = torch.device(device)
     nb = op.n_pad // LANES
     colored = nb >= MIN_COLORED_BLOCKS
@@ -136,10 +165,19 @@ def gpu_level_from_operator(
     return GpuLevel(
         A=A,
         sweep=sw,
+        bound=device_compact(op.bound, dtype, device, "bound2"),
+        cond=device_compact(op.cond, dtype, device, "push2"),
+        lag_col=f(op.lag_col),
+        lag_row=f(op.lag_row),
         smooth_mask=f(op.smooth_mask),
         dirichlet_mask=f(op.dirichlet_mask),
+        neumann_mask=f(op.neumann_mask),
         dirichlet_values=f(op.dirichlet_values),
+        neumann_values=f(op.neumann_values),
         row_map=op.row_map.to(device=device, dtype=torch.int64),
+        has_lagrange=op.has_lagrange,
+        implicit=op.implicit,
+        omega=op.omega,
         iters=op.iters,
     )
 
@@ -157,21 +195,47 @@ def gpu_hierarchy(hier: Hierarchy, device, dtype=torch.float32) -> Hierarchy:
 # ---------------------------------------------------------------------------
 
 
+def _lag_dot(op: GpuLevel, x):
+    return (op.lag_row * x).sum()  # an elementwise product and a sum: no cuBLAS
+
+
 def matvec(op: GpuLevel, x, x_lag):
-    return ell_spmv(op.A, x), x.new_zeros(())
+    y = ell_spmv(op.A, x)
+    if not op.has_lagrange:
+        return y, x.new_zeros(())
+    return y + op.lag_col * x_lag, _lag_dot(op, x) + x_lag
 
 
 def bound_eval_neumann(op: GpuLevel, x, b):
-    return x  # no Neumann rows on a GpuLevel
+    """Re-solve the Neumann boundary rows; returns a new vector."""
+    if op.bound.nrows == 0:
+        return x
+    return compact_rows(op.bound, x.clone(), b.contiguous())
+
+
+def push_inhomog_to_rhs(op: GpuLevel, b):
+    """b_i -= sum_j C_ij b_j at the condensed rows; returns a new vector."""
+    if op.cond.nrows == 0:
+        return b
+    b = b.contiguous()
+    return compact_rows(op.cond, b, b)
 
 
 def smooth(op: GpuLevel, x, x_lag, b, b_lag, iters=None):
-    """``iters`` block GS sweeps.  The sweep kernel updates in place, so
-    ``x`` is copied once up front."""
+    """``iters`` sweeps, each: block GS -> Lagrange-row relax -> Neumann
+    row re-solve (reference tpu_backend.smooth).  The sweep and re-solve
+    kernels update in place, so ``x`` is copied once up front."""
     iters = op.iters if iters is None else iters
+    w = op.omega
     x = x.clone()
     x_lag = torch.as_tensor(x_lag, dtype=x.dtype, device=x.device)
+    b_lag = torch.as_tensor(b_lag, dtype=x.dtype, device=x.device)
     b = b.contiguous()
     for _ in range(iters):
         block_oneshot_sweep(op.sweep, x, x_lag, b)
+        if op.has_lagrange:
+            # border row: A_NN = 1 (grid.cpp:573)
+            x_lag = (1.0 - w) * x_lag + w * (b_lag - _lag_dot(op, x))
+        if op.bound.nrows:
+            compact_rows(op.bound, x, b)
     return x, x_lag

@@ -88,6 +88,7 @@ class PoissonProblem:
     clouds: list[PointCloud]
     state0: MGState
     exact: np.ndarray  # exact solution on the (ordered) finest cloud
+    source: np.ndarray  # source f on the (ordered) finest cloud
     neumann: bool
     geomtype: str
     k1: int
@@ -179,12 +180,9 @@ def make_poisson_problem(
         exact = exact_square(fine.points, neumann, k1, k2)
 
     op_f = hier.finest
-    state = init_state(hier, torch.from_numpy(np.asarray(src, np.float64)))
-    bf = state.b[-1]
-    if neumann:
-        bf = set_neumann_source(op_f, bf, coarse=False)  # fine g values
-        bf = push_inhomog_to_rhs(op_f, bf)
-    state = state.replace_level(len(hier.levels) - 1, b=bf)
+    src = np.asarray(src, np.float64)
+    state = init_state(hier, torch.from_numpy(src))
+    state = state.replace_level(len(hier.levels) - 1, b=fine_rhs(op_f, src, neumann))
     # pin fine Dirichlet values once (boundaryOp("fine"): done per-cycle too)
     xf = apply_dirichlet(op_f, state.x[-1], coarse=False)
     state = state.replace_level(len(hier.levels) - 1, x=xf)
@@ -194,11 +192,24 @@ def make_poisson_problem(
         clouds=ordered,
         state0=state,
         exact=exact,
+        source=src,
         neumann=neumann,
         geomtype=geomtype,
         k1=k1,
         k2=k2,
     )
+
+
+def fine_rhs(op, source: np.ndarray, neumann: bool) -> torch.Tensor:
+    """The fine level's right-hand side in ``op``'s permuted padded rows, on
+    its device and in its dtype: the source, then on Neumann problems the
+    boundary data g at the Neumann rows and the condensation pushdown
+    (through ``op``'s backend: the ``compact_rows`` kernel on a GpuLevel)."""
+    b = op.to_padded(torch.from_numpy(source).to(op.smooth_mask))
+    if neumann:
+        b = set_neumann_source(op, b, coarse=False)  # fine g values
+        b = push_inhomog_to_rhs(op, b)
+    return b
 
 
 def l1_error(problem: PoissonProblem, x_padded: torch.Tensor) -> float:

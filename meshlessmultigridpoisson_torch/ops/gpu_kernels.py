@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Two kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
-the four Pallas TPU kernels on the Dirichlet solve path of the reference
+Three kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
+the five Pallas TPU kernels on the Poisson solve path of the reference
 package:
 
 =================================  ===========================================
@@ -15,6 +15,10 @@ CUDA kernel (role counter)         TPU kernel it replaces
                                    storage-order block GS (coarsest level)
 ``block_oneshot_sweep`` (sweep8)   ops/kernels8.py ``sor_sweep_tpu8``:
                                    colored block GS (fine levels)
+``compact_rows`` (``bound2``)      ops/kernels.py ``spmv_tpu2``: Neumann
+                                   boundary-row re-solve after every sweep
+``compact_rows`` (``push2``)       ops/kernels.py ``spmv_tpu2``: condensation
+                                   pushdown of the right-hand side
 =================================  ===========================================
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
@@ -52,12 +56,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmmp_kernels.so")
-SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu")
+SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu", "compact_rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches per TPU-kernel role; reset with reset_counts()
-COUNTS = {"spmv6": 0, "spmv8": 0, "sweep7": 0, "sweep8": 0}
+COUNTS = {"spmv6": 0, "spmv8": 0, "sweep7": 0, "sweep8": 0, "bound2": 0,
+          "push2": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -116,6 +121,10 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
+            for name in ("mmp_compact_rows_f32", "mmp_compact_rows_f64"):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [p, p, i, i, p, p, i, p, p, p, i, p]
             _lib = lib
     return _lib
 
@@ -286,6 +295,103 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
         _launch_ok(rc, "block_oneshot_sweep")
         COUNTS[sw.role] += 1
     return x
+
+
+# ---------------------------------------------------------------------------
+# compact_rows
+# ---------------------------------------------------------------------------
+
+# the epilogue each role runs (the kernel's ``mode`` argument)
+_COMPACT_MODE = {"bound2": 0, "push2": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCompact:
+    """A compact table of rows of a big operator (``CompactRows``), on a
+    device: row-major ELL with global int32 columns, the target row of each
+    compact row in the big row space (padding slots: ``>= n_pad``) and the
+    big matrix's diagonal there.  ``role``: "bound2" (Neumann re-solve) or
+    "push2" (condensation pushdown)."""
+
+    vals: torch.Tensor  # [m_pad, width]
+    cols: torch.Tensor  # [m_pad, width] int32
+    rows: torch.Tensor  # [m_pad] int32
+    diag: torch.Tensor  # [m_pad]
+    nrows: int  # true m (0: an empty table, nothing to launch)
+    n_pad: int  # length of the vectors it reads and writes
+    role: str
+
+    @property
+    def m_pad(self) -> int:
+        return self.vals.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.vals.shape[1]
+
+
+def device_compact(c, dtype, device, role: str) -> DeviceCompact:
+    """Repack a host ``CompactRows`` (stencil/operators.py) for the kernel."""
+    if role not in _COMPACT_MODE:
+        raise ValueError(f"unknown compact-row role {role!r}")
+    return DeviceCompact(
+        vals=c.ell.vals.to(device=device, dtype=dtype).contiguous(),
+        cols=global_cols(c.ell).to(device=device, dtype=torch.int32).contiguous(),
+        rows=c.rows.to(device=device, dtype=torch.int32).contiguous(),
+        diag=c.ell.diag.to(device=device, dtype=dtype).contiguous(),
+        nrows=c.nrows,
+        n_pad=c.ell.ncols,
+        role=role,
+    )
+
+
+def compact_rows_plain(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor):
+    """Plain version of ``compact_rows``: gather-sum, then the role's
+    epilogue through index ops (sentinel rows dropped)."""
+    y = ell_spmv_plain(C.vals, C.cols, x)
+    rows = C.rows.long()
+    keep = rows < C.n_pad
+    r = rows[keep]
+    if C.role == "bound2":
+        d = C.diag[keep]
+        x[r] = (b[r] - (y[keep] - d * x[r])) / d
+        return x
+    out = b.clone()
+    out[r] = b[r] - y[keep]
+    return out
+
+
+def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The table's epilogue over y = C x.
+
+    "bound2": re-solve each target row for its own unknown, IN PLACE on
+    ``x``; returns ``x``.  "push2": returns a new vector, ``b`` with
+    ``b[r] - (C x)_i`` at the target rows (callers pass ``x = b``).
+    An empty table (``nrows == 0``) launches nothing.
+    """
+    if x.device.type == "cpu" and C.vals.device.type == "cpu":
+        return compact_rows_plain(C, x, b)
+    dev, dt = C.vals.device, C.vals.dtype
+    if dev.type != "cuda" or dt not in _SUFFIX:
+        raise ValueError(f"compact_rows takes f32/f64 CUDA tensors, got {dt} on {dev}")
+    _check("cols", C.cols, dev, torch.int32, C.vals.shape)
+    _check("vals", C.vals, dev)
+    _check("rows", C.rows, dev, torch.int32, (C.m_pad,))
+    _check("diag", C.diag, dev, dt, (C.m_pad,))
+    _check("x", x, dev, dt, (C.n_pad,))
+    _check("b", b, dev, dt, (C.n_pad,))
+    mode = _COMPACT_MODE[C.role]
+    out = x if mode == 0 else b.clone()
+    if C.nrows == 0:
+        return out
+    fn = getattr(_load(), f"mmp_compact_rows_{_SUFFIX[dt]}")
+    rc = fn(C.vals.data_ptr(), C.cols.data_ptr(), C.width, C.m_pad,
+            C.rows.data_ptr(), C.diag.data_ptr(), C.n_pad, x.data_ptr(),
+            b.data_ptr(), out.data_ptr(), mode,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, "compact_rows")
+    COUNTS[C.role] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,7 @@ modify_coeff_neumann / push_inhomog_to_rhs, grid.cpp:520-685):
 * rows with bc flag != 2 get Laplacian stencil weights;
 * Neumann rows get n.grad weights over interior-only stencils, the
   Lagrange border is kept out of the matrix (rank-1 lag_col/lag_row), and
-  implicit mode condenses Neumann unknowns out of interior rows (the device
-  path for Neumann levels is not ported yet: ``mg.gpu_backend`` raises);
+  implicit mode condenses Neumann unknowns out of interior rows;
 * the assembled matrix is padded to a multiple of ``block_rows`` and
   symmetrically permuted by the capped in-block coloring so the smoother's
   (block, class) sweep is exact Gauss-Seidel.  ``row_map`` maps logical

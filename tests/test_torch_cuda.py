@@ -11,7 +11,8 @@ Fixture: the ``tests/test_kernels8.py`` pattern (36x36 jittered grid,
 k = 28, kd-tile ordered, non-symmetric values).  Tolerances, relative to
 max |plain output|: f32 1e-5 for the SpMV (another summation order over
 ~28 products), 1e-4 for a sweep (the 128-term K product on top); f64
-1e-12 / 1e-11 for the same reorderings in double.
+1e-12 / 1e-11 for the same reorderings in double.  ``compact_rows`` is a
+gather-sum with a two-operation epilogue: the SpMV's tolerances.
 """
 
 import numpy as np
@@ -20,8 +21,10 @@ import scipy.sparse as sp
 import torch
 
 from meshlessmultigridpoisson_torch.geometry.ordering import kd_tile_ordering
+from meshlessmultigridpoisson_torch.mg.gpu_backend import check_resolve_in_place
 from meshlessmultigridpoisson_torch.ops import ell as tell
 from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+from meshlessmultigridpoisson_torch.stencil.operators import _compact_from_rows
 
 pytestmark = [
     pytest.mark.cuda,
@@ -101,6 +104,49 @@ def test_block_sweep_matches_plain(et, serial, dtype, tol):
     assert float(moved.max()) == 0.0  # zero K rows never move
 
 
+@pytest.fixture(scope="module")
+def compact(et):
+    """A compact table cut from the fixture: every 37th row (35 rows, 93
+    sentinel padding slots in 128), entries in other target rows' columns
+    dropped (the re-solve's in-place condition), one row reduced to its
+    diagonal."""
+    a = tell.ell_to_csr(et).tolil()
+    targets = np.arange(0, a.shape[0], 37)
+    for r in targets:
+        for c in targets:
+            if c != r:
+                a[r, c] = 0.0
+    only_diag = targets[3]
+    a[only_diag, :] = 0.0
+    a[only_diag, only_diag] = 2.5
+    table = _compact_from_rows(a.tocsr(), targets, block_rows=128)
+    check_resolve_in_place(table)
+    assert table.nrows == targets.size and table.rows.shape[0] == 128
+    return table, only_diag
+
+
+@pytest.mark.parametrize("role", ["bound2", "push2"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_compact_rows_matches_plain(compact, role, dtype, tol):
+    table, only_diag = compact
+    C = gk.device_compact(table, dtype, "cuda", role)
+    x, b = _rand(C.n_pad, dtype, 3), _rand(C.n_pad, dtype, 4)
+    xin = x if role == "bound2" else b
+    before = gk.COUNTS[role]
+    out = gk.compact_rows(C, xin.clone(), b)
+    torch.cuda.synchronize()
+    assert gk.COUNTS[role] == before + 1
+    ref = gk.compact_rows_plain(C, xin.clone(), b)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    rows = table.rows[: table.nrows].long().cuda()
+    untouched = torch.ones(C.n_pad, dtype=torch.bool, device="cuda")
+    untouched[rows] = False  # sentinel slots wrote nothing
+    assert torch.equal(out[untouched], xin[untouched])
+    if role == "bound2":  # y - d x[r] = 0: x[r] = b[r] / d
+        assert abs(float(out[only_diag] - b[only_diag] / 2.5)) <= tol * float(
+            ref.abs().max())
+
+
 def test_wrapper_refuses_wrong_dtype(et):
     A = gk.device_ell(et, torch.float32, "cuda", "spmv6")
     with pytest.raises(ValueError):
@@ -109,13 +155,18 @@ def test_wrapper_refuses_wrong_dtype(et):
 
 def test_cli_solve_on_card_runs_every_kernel():
     """The slice's flow at a small ladder: the CLI on the card reaches its
-    tolerance and launches all four kernel roles."""
+    tolerance and launches the four SpMV and sweep roles (Dirichlet), and
+    those and the boundary re-solve (Neumann)."""
     from meshlessmultigridpoisson_torch.apps import cli
 
-    rec, _, _ = cli.run_solve([
-        "solve", "--device", "cuda", "--geom", "square_with_circle",
-        "--sizes", "600", "2500", "5000", "--deg", "4", "--ordering", "kdtile",
-        "--block-rows", "512", "--tol", "1e-10"])
-    assert rec.final_residual < 1e-10
-    assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact", "v8-colored"]
-    assert all(n > 0 for n in rec.extra["launches"].values()), rec.extra["launches"]
+    argv = ["solve", "--device", "cuda", "--geom", "square_with_circle",
+            "--sizes", "600", "2500", "5000", "--deg", "4", "--ordering", "kdtile",
+            "--block-rows", "512", "--tol", "1e-10"]
+    for extra, roles in (([], ("spmv6", "spmv8", "sweep7", "sweep8")),
+                         (["--neumann"], ("spmv6", "spmv8", "sweep7", "sweep8",
+                                          "bound2"))):
+        rec, *_ = cli.run_solve(argv + extra)
+        assert rec.final_residual < 1e-10
+        assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact", "v8-colored"]
+        launches = rec.extra["launches"]
+        assert all(launches[r] > 0 for r in roles), launches

@@ -32,7 +32,6 @@ from meshlessmultigridpoisson_tpu.models.poisson import make_poisson_problem as 
 from meshlessmultigridpoisson_torch import interop
 from meshlessmultigridpoisson_torch.mg import gpu_backend
 from meshlessmultigridpoisson_torch.mg.vcycle import run_v_cycles as trun
-from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem as tmake
 
 # the test workers share the host's cores with the JAX test files: one
 # intra-op thread per process keeps torch's thread pool from contending
@@ -84,12 +83,6 @@ def test_level_kinds_and_colored_order_match_tpu_hierarchy(slice_reference):
         assert gl.sweep.nphases == tl.colored8.ncolors
 
 
-def test_neumann_level_is_refused_on_the_device_path():
-    p = tmake("square", sizes=[170, 600], poly_deg=3, neumann=True)
-    with pytest.raises(NotImplementedError, match="spmv_tpu2"):
-        gpu_backend.gpu_hierarchy(p.hierarchy, "cpu")
-
-
 def test_cuda_device_without_card_refuses(monkeypatch):
     from meshlessmultigridpoisson_torch.apps import cli
 
@@ -130,7 +123,7 @@ def test_slice_cpu_solve_matches_reference_cli(monkeypatch):
     rec_j, sol_j = _reference_cli_solve(monkeypatch)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        rec_t, prob_t, x_t = cli.run_solve([
+        rec_t, prob_t, x_t, xl_t = cli.run_solve([
             "solve", "--device", "cpu", "--geom", SLICE["geom"],
             "--sizes", *map(str, SLICE["sizes"]), "--deg", str(SLICE["deg"]),
             "--ordering", SLICE["ordering"],
@@ -139,6 +132,7 @@ def test_slice_cpu_solve_matches_reference_cli(monkeypatch):
     assert rec_t.config["sizes"] == rec_j.config["sizes"]
     assert rec_t.extra["level_kernels"] == ["v7-exact", "v7-exact", "v8-colored"]
     assert rec_t.extra["device"] == "cpu"
+    assert rec_t.config["neumann"] is False and float(xl_t) == 0.0
     assert 0 <= rec_j.final_residual < 1e-10
     assert 0 <= rec_t.final_residual < 1e-10
     assert abs(rec_t.l1_error - rec_j.l1_error) <= 0.05 * rec_j.l1_error
