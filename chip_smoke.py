@@ -27,18 +27,32 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    and both ``compact_rows`` roles); relative L1 residual < 1e-8,
    re-checked from the returned (x, x_lag) with the plain f64 SpMV, border
    row included; L1 error < 1e-6;
-4. print a JSON line of per-kernel results, then, as the last line,
+4. the fractional-step Navier-Stokes path (``cli ns``, Kovasznay, the
+   reference program's default run at its default width and depth: sizes
+   170/600/2500/10000, deg 6): on its problem, ``compact_rows`` role
+   ``ppe2`` (f32, f64) on the fine boundary table and ``ell_spmv`` on the
+   derivative operators against their plain versions; then ``run_ns``
+   in-process for 12 steps from rest (counts set to 0 before,
+   read after), checking level kernels ``[v7-exact x3, v8-colored]``, the
+   path's roles (SpMV, sweeps, ``bound2``, ``ppe2``) launched, every
+   fs_residual finite, the steps 0, 4, 8, ... matching the reference's TPU
+   record ``results/ns_tpu_r5.json`` within 2e-3 relative, and the last
+   step's PPE solve (before the p_relax blend) re-checked with a plain f64
+   composition of the compatible operator below 1e-9;
+5. print a JSON line of per-kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package next to it, it exits with a
 non-zero code and prints no result.  ``--sizes`` shrinks the ladder for a
-quick rehearsal; the level-kernel check then only applies to the default.
+quick rehearsal of the two solve paths; their level-kernel check then only
+applies to the default.  The NS path always runs at its default width.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -62,8 +76,20 @@ ROLES = {
                "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
     "push2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
               "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
+    "ppe2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
+             "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
 }
 DIRICHLET_ROLES = ("spmv6", "spmv8", "sweep7", "sweep8")
+NEUMANN_ROLES = DIRICHLET_ROLES + ("bound2", "push2")
+# the NS main path: the reference program's default run at its own width
+# and depth (cli ns defaults), S steps from rest
+NS_SIZES = [170, 600, 2500, 10000]
+NS_STEPS = 12
+NS_ROLES = DIRICHLET_ROLES + ("bound2", "ppe2")
+NS_EXPECT_KERNELS = ["v7-exact", "v7-exact", "v7-exact", "v8-colored"]
+# the reference's TPU record of that run (2000 steps; history every 4th step)
+NS_RECORD = "results/ns_tpu_r5.json"
+NS_HIST_RTOL = 2e-3
 # tolerances, relative to max |plain output|.  f32: the kernel sums a row in
 # another order than the plain gather-sum (warp-shuffle tree vs sequential),
 # ~70 products of ~1e5-scale weights with cancellation; a sweep adds the
@@ -121,6 +147,39 @@ def bordered_residual(op, b, b_lag, x, x_lag) -> float:
     y = torch.where(dmask, x, y)
     return float(((b - y).abs().sum() + r_lag.abs())
                  / (b.abs().sum() + b_lag.abs()))
+
+
+def compatible_residual(prob, b, x, x_lag) -> float:
+    """Relative L1 residual of the bordered compatible pressure system
+    (b_lag = 0), recomputed from (x, x_lag) on ``x``'s device by a plain f64
+    composition of the host-built operators: Dx.(Dx x) + Dy.(Dy x) with the
+    gather-sum SpMV, the fine boundary rows' products scattered over it,
+    identity rows at padding, the Lagrange border.  ``prob`` is the host
+    FracStepProblem."""
+    import torch
+
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+    from meshlessmultigridpoisson_torch.ops.ell import global_cols
+
+    dev = x.device
+
+    def f(v):
+        return torch.as_tensor(v).to(device=dev, dtype=torch.float64)
+
+    def spmv(m, v):
+        return gk.ell_spmv_plain(f(m.vals), global_cols(m).to(dev), v)
+
+    op = prob.hierarchy.finest
+    x, x_lag = f(x), f(x_lag)
+    y = spmv(prob.dx, spmv(prob.dx, x)) + spmv(prob.dy, spmv(prob.dy, x))
+    rows = op.bound.rows.long().to(dev)
+    keep = rows < op.n_pad
+    y[rows[keep]] = spmv(op.bound.ell, x)[keep]
+    y = torch.where(f(op.smooth_mask + op.neumann_mask) > 0, y, x)
+    y = y + f(op.lag_col) * x_lag
+    r_lag = (f(op.lag_row) * x).sum() + x_lag
+    b = f(b)
+    return float(((b - y).abs().sum() + r_lag.abs()) / b.abs().sum())
 
 
 def main(argv=None) -> int:
@@ -236,20 +295,27 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     def check_compact(label, C):
+        """Kernel vs plain on one table: "bound2" re-solves x in place,
+        "push2" gathers b, "ppe2" scatters into a copy of b (never x)."""
         n = C.n_pad
         x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, C.vals.dtype)
         b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, C.vals.dtype)
-        xin = x0 if C.role == "bound2" else b  # pushdown: the gather reads b
+        xin = b if C.role == "push2" else x0
+        base = x0 if C.role == "bound2" else b  # what the output starts from
         before = gk.COUNTS[C.role]
-        out = gk.compact_rows(C, xin.clone(), b)
+        out = gk.compact_rows(C, xin.clone(), b.clone())
         torch.cuda.synchronize()
         if gk.COUNTS[C.role] != before + 1:
             raise AssertionError(f"compact_rows {label}: no launch counted")
-        ref = gk.compact_rows_plain(C, xin.clone(), b)
+        ref = gk.compact_rows_plain(C, xin.clone(), b.clone())
         err = float((out - ref).abs().max())
-        xs = xin.clone()
-        ms = time_ms(lambda: gk.compact_rows(C, xs, b), 200)
-        pms = time_ms(lambda: gk.compact_rows_plain(C, xs, b), 50)
+        untouched = torch.ones(n, dtype=torch.bool, device=dev)
+        untouched[C.rows[: C.nrows].long()] = False
+        if not torch.equal(out[untouched], base[untouched]):
+            raise AssertionError(f"compact_rows {label}: wrote outside its rows")
+        xs, bs = xin.clone(), b.clone()
+        ms = time_ms(lambda: gk.compact_rows(C, xs, bs), 200)
+        pms = time_ms(lambda: gk.compact_rows_plain(C, xs, bs), 50)
         dt = "f32" if C.vals.dtype == torch.float32 else "f64"
         record(C.role, f"compact_rows {dt} {label} ({C.nrows} of {C.m_pad} rows, "
                f"width {C.width})", dt, err, float(ref.abs().max()), ms, pms,
@@ -275,7 +341,7 @@ def main(argv=None) -> int:
                   "--ordering", "kdtile", "--block-rows", "512", "--tol", "1e-8"]
     launches = {}
     for path, extra, roles in (("dirichlet", [], DIRICHLET_ROLES),
-                               ("neumann", ["--neumann"], tuple(ROLES))):
+                               ("neumann", ["--neumann"], NEUMANN_ROLES)):
         argv = argv_solve + extra
         print(f"main path ({path}): python -m meshlessmultigridpoisson_torch.apps.cli "
               + " ".join(argv), flush=True)
@@ -307,7 +373,78 @@ def main(argv=None) -> int:
         del rec, prob, x, xl
         torch.cuda.empty_cache()
 
-    # ---- 4. results ----------------------------------------------------------
+    # ---- 4. the fractional-step Navier-Stokes path ---------------------------
+    from meshlessmultigridpoisson_torch.models.fracstep import build_fracstep_problem
+    from meshlessmultigridpoisson_torch.models.fracstep_gpu import build_gpu_fracstep
+
+    t0 = time.perf_counter()
+    nsp = build_fracstep_problem(sizes=NS_SIZES, poly_deg=6, device=dev)
+    gfs = build_gpu_fracstep(nsp, dev)
+    torch.cuda.synchronize()
+    print(f"phase-4 NS setup {time.perf_counter() - t0:.1f} s, sizes "
+          f"{[c.n for c in nsp.clouds]}, level kinds "
+          f"{[lv.kernel_kind for lv in gfs.hd.levels]}", flush=True)
+    check_compact("NS compatible-PPE scatter", gfs.ppe32)
+    check_compact("NS compatible-PPE scatter", gfs.ppe64)
+    check_spmv("spmv6", "NS d/dx", gfs.dx32)
+    check_spmv("spmv6", "NS velocity Laplacian", gfs.lap32)
+    check_spmv("spmv6", "NS d/dx", gfs.dx64)
+    del nsp, gfs
+    torch.cuda.empty_cache()
+
+    argv = ["ns", "--device", "cuda", "--sizes", *map(str, NS_SIZES), "--deg", "6",
+            "--steps", str(NS_STEPS)]
+    print("main path (ns): python -m meshlessmultigridpoisson_torch.apps.cli "
+          + " ".join(argv), flush=True)
+    gk.reset_counts()
+    rec, prob, last = cli.run_ns(argv)
+    torch.cuda.synchronize()
+    launches["ns"] = dict(gk.COUNTS)
+    print(rec.to_json(), flush=True)
+    print(f"launches during the ns main path: {launches['ns']}", flush=True)
+    ex = rec.extra
+    print(f"ns: setup {ex['setup_time_s']:.2f} s, {NS_STEPS} steps in "
+          f"{rec.wall_time_s:.2f} s (first {ex['step_time_s'][0]:.2f} s, then "
+          f"{sum(ex['step_time_s'][1:]) / max(len(ex['step_time_s']) - 1, 1):.3f} "
+          f"s/step); PPE outer passes {ex['ppe_outer']}, inner iterations "
+          f"{ex['ppe_inner_iters']}, final PPE residuals {ex['ppe_residual']}",
+          flush=True)
+    if rec.extra["level_kernels"] != NS_EXPECT_KERNELS:
+        return fail(f"ns: level kernels {rec.extra['level_kernels']} != "
+                    f"{NS_EXPECT_KERNELS}")
+    idle = [r for r in NS_ROLES if launches["ns"][r] == 0]
+    if idle:
+        return fail(f"ns: kernel roles never launched on the main path: {idle}")
+    hist = rec.residual_history  # every step while steps < 1000
+    if len(hist) != NS_STEPS or not all(math.isfinite(h) for h in hist):
+        return fail(f"ns: fs_residual history not finite or short: {hist}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           NS_RECORD)) as fh:
+        ref = json.load(fh)
+    if rec.config["sizes"] != ref["config"]["sizes"]:
+        return fail(f"ns: cloud sizes {rec.config['sizes']} != the record's "
+                    f"{ref['config']['sizes']}")
+    dev_max = 0.0
+    for step in range(0, NS_STEPS, 4):
+        r = ref["residual_history"][step // 4]
+        d = abs(hist[step] - r) / r
+        dev_max = max(dev_max, d)
+        print(f"  ns step {step}: fs_residual {hist[step]:.10e} record "
+              f"{r:.10e} rel dev {d:.3e} (tol {NS_HIST_RTOL:.0e})", flush=True)
+    print(f"ns: largest deviation from {NS_RECORD}: {dev_max:.3e}", flush=True)
+    if not dev_max <= NS_HIST_RTOL:
+        return fail(f"ns: fs_residual deviates {dev_max:.3e} from the record")
+    recheck = compatible_residual(prob, last["b"].to(dev), last["x"].to(dev),
+                                  last["x_lag"].to(dev))
+    print(f"ns: last PPE solve re-checked with the plain f64 compatible "
+          f"operator: relative L1 residual {recheck:.3e} (solver reported "
+          f"{ex['ppe_residual'][-1]:.3e})", flush=True)
+    if not recheck < 1e-9:
+        return fail(f"ns: re-checked PPE residual {recheck:.3e} >= 1e-9")
+    del rec, prob, last
+    torch.cuda.empty_cache()
+
+    # ---- 5. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
         by_path = {p: n[role] for p, n in launches.items()}

@@ -1,8 +1,10 @@
-"""Command-line interface of the port: the ``solve`` sub-command.
+"""Command-line interface of the port: the ``solve`` and ``ns`` sub-commands.
 
     python -m meshlessmultigridpoisson_torch.apps.cli solve --device cuda \\
         --geom square_with_circle --sizes 2500 10000 35000 150000 --deg 6 \\
         --ordering kdtile --block-rows 512 --tol 1e-8 [--neumann]
+    python -m meshlessmultigridpoisson_torch.apps.cli ns --device cuda \\
+        --sizes 170 600 2500 10000 --deg 6 --steps 2000
 
 Flow (the reference package's ``solve --platform tpu``): f64 host setup
 (clouds, kNN, ordering, RBF-FD weights on ``--device``, assembly with
@@ -13,11 +15,17 @@ condensation pushdown) -> mixed-precision defect correction
 (mg/mixed.py) with an f64 outer residual and an f32 V-cycle-preconditioned
 BiCGStab inside.  One outer pass runs untimed first, then the timed solve.
 
+``ns`` (the reference package's ``ns --platform tpu``, the reference
+program's default run): the fractional-step Kovasznay flow, f64 host setup
+(models/fracstep.py) -> repack (models/fracstep_gpu.py) -> ``--steps``
+device timesteps, each with an f32 predictor/corrector and the f64
+compatible PPE solved by ``mg/mixed.solve_mixed`` to ``--ppe-tol``.
+
 ``--device cuda`` runs the CUDA kernels and refuses to start without a
 card; ``--device cpu`` runs the same flow through the kernels' plain
 PyTorch versions.  The printed JSON SolveRecord carries the level kernel
 kinds, the device name and each kernel role's launch count in the timed
-solve.
+solve (``ns``: in the time loop).
 """
 
 from __future__ import annotations
@@ -53,6 +61,33 @@ def _parser() -> argparse.ArgumentParser:
                         "torch.profiler and attach per-kernel device time "
                         "and the device busy share to the record")
     p.add_argument("--out", default=None, help="write the JSON SolveRecord here")
+
+    pn = sub.add_parser("ns", help="fractional-step Navier-Stokes (Kovasznay)")
+    pn.add_argument("--sizes", type=int, nargs="+", default=[170, 600, 2500, 10000])
+    pn.add_argument("--deg", type=int, default=6)
+    pn.add_argument("--steps", type=int, default=2000)
+    pn.add_argument("--dt", type=float, default=2e-4)
+    pn.add_argument("--mu", type=float, default=0.025)
+    pn.add_argument("--rho", type=float, default=1.0)
+    pn.add_argument("--ppe-tol", type=float, default=1e-10)
+    pn.add_argument("--reference-ppe", action="store_true",
+                    help="strict reference PPE (no compatible projection); "
+                         "not implemented on this path: raises")
+    pn.add_argument("--implicit-diffusion", action="store_true",
+                    help="backward-Euler viscosity (needed at deg 6 + fine N)")
+    pn.add_argument("--p-relax", type=float, default=0.7)
+    pn.add_argument("--msh", nargs="+", default=None, metavar="FILE",
+                    help="Gmsh v2 .msh files, coarse -> fine, replacing "
+                         "--sizes (the reference's own NS input path, "
+                         "FractionalStepSim.cpp:190-199)")
+    pn.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda: CUDA kernels on the first card (no card: "
+                         "error); cpu: the kernels' plain versions")
+    pn.add_argument("--profile", action="store_true",
+                    help="after the run, run 3 more steps under torch.profiler "
+                         "and attach per-kernel device time and the device "
+                         "busy share to the record")
+    pn.add_argument("--out", default=None, help="write the JSON SolveRecord here")
     return ap
 
 
@@ -186,8 +221,114 @@ def run_solve(argv=None):
     return rec, prob, x, xl
 
 
+def run_ns(argv=None):
+    """Parse ``ns`` arguments and run it; returns (record, problem, last
+    PPE solve): the last step's PPE right-hand side ``b`` and its solution
+    ``x``, ``x_lag`` before the ``p_relax`` blend, all f64 on the host in
+    the fine level's permuted padded rows."""
+    import time
+
+    import torch
+
+    from meshlessmultigridpoisson_torch.config import FracStepConfig
+    from meshlessmultigridpoisson_torch.models import fracstep as fs
+    from meshlessmultigridpoisson_torch.models.fracstep_gpu import (
+        build_gpu_fracstep,
+        run_gpu,
+        state_to,
+        timestep_gpu,
+    )
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels
+    from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord, Timer
+
+    args = _parser().parse_args(argv)
+    if args.cmd != "ns":
+        raise SystemExit("run_ns takes the ns sub-command")
+    dev = _device(args.device)
+    log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
+    if args.reference_ppe:
+        raise NotImplementedError(
+            "the device fractional-step path implements the compatible "
+            "div∘grad PPE only; --reference-ppe is not available here")
+    cfg = FracStepConfig(dt=args.dt, mu=args.mu, rho=args.rho,
+                         ppe_tol=args.ppe_tol, max_steps=args.steps,
+                         p_relax=args.p_relax,
+                         diffusion="implicit" if args.implicit_diffusion
+                         else "explicit")
+    with Timer() as t_setup:
+        prob = fs.build_fracstep_problem(sizes=list(args.sizes), poly_deg=args.deg,
+                                         config=cfg, msh_files=args.msh, device=dev)
+        gfs = build_gpu_fracstep(prob, dev)
+        if dev.type == "cuda":
+            gpu_kernels.build()  # nvcc at first use: setup, not step 0
+        _sync(dev)
+    log(f"setup: {t_setup.elapsed:.1f}s")
+
+    rec = SolveRecord(
+        name="fracstep-kovasznay",
+        config=dict(sizes=[c.n for c in prob.clouds], deg=args.deg, dt=args.dt,
+                    steps=args.steps, compatible=True, platform=dev.type,
+                    msh=args.msh),
+    )
+    rec.extra["level_kernels"] = [lv.kernel_kind for lv in gfs.hd.levels]
+    log(f"level kernels: {rec.extra['level_kernels']}")
+
+    err_hist, outer, inner, passes, ppe_res, step_s, last = [], [], [], [], [], [], {}
+    t_prev = [time.perf_counter()]
+
+    def on_step(i, state, st):
+        now = time.perf_counter()
+        step_s.append(now - t_prev[0])
+        t_prev[0] = now
+        outer.append(st["ppe_outer"])
+        inner.append([its for its, _, _ in st["ppe_passes"]])
+        passes.append(st["ppe_passes"])
+        ppe_res.append(st["ppe_residual"])
+        last.clear()
+        last.update(b=state.mg.b[-1], x=st["p_solve"], x_lag=st["pl_solve"])
+        if i % 50 == 0:
+            err = fs.u_error_vs_kovasznay(prob, state)
+            err_hist.append([i, err])
+            log(f"step {i}: u_err={err:.3e} ppe passes (inner iterations, "
+                f"inner residual, outer residual) {st['ppe_passes']}")
+
+    before = dict(gpu_kernels.COUNTS)
+    with Timer() as t:
+        state, hist_a, err = run_gpu(prob, dev, steps=args.steps, t=gfs,
+                                     on_step=on_step)
+        _sync(dev)
+    hist = hist_a.tolist()
+    rec.wall_time_s = t.elapsed
+    rec.residual_history = hist[:: max(1, len(hist) // 500)]
+    rec.l1_error = err
+    rec.final_residual = hist[-1]
+    rec.cycles = args.steps
+    rec.extra.update(
+        u_err_history=err_hist, final_u_l1_error_vs_kovasznay=err,
+        device=(torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+        launches={k: v - before[k] for k, v in gpu_kernels.COUNTS.items()},
+        setup_time_s=t_setup.elapsed, step_time_s=step_s, ppe_outer=outer,
+        ppe_inner_iters=inner, ppe_passes=passes, ppe_residual=ppe_res)
+    if args.profile:
+        s_dev = state_to(state, dev)
+
+        def three_steps():
+            s = s_dev
+            for _ in range(3):
+                s, _ = timestep_gpu(gfs, s)
+
+        rec.extra["profile"] = _device_profile(three_steps, dev)
+    if args.out:
+        rec.save(args.out)
+    return rec, prob, {k: v.cpu() for k, v in last.items()}
+
+
 def main(argv=None):
-    rec, *_ = run_solve(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["ns"]:
+        rec, *_ = run_ns(argv)
+    else:
+        rec, *_ = run_solve(argv)
     print(rec.to_json())
     return rec
 

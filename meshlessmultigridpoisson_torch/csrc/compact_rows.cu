@@ -12,21 +12,26 @@
 //     sum, in the reference's own order of operations;
 //   mode 1, pushdown (condensation rows, role "push2"):
 //       out[r] = b[r] - y_i                           (x is b, out a copy)
+//   mode 2, scatter (the compatible PPE's Neumann rows, role "ppe2"):
+//       out[r] = y_i      (out is the matvec's y, never x; b unread: the
+//                          wrapper passes x there)
 // Padding slots carry r >= n_pad (the table's sentinel, n_pad + 1) and
 // write nothing: the reference's scatter with mode="drop".
 //
 // Replaces the reference package's
 //   meshlessmultigridpoisson_tpu/ops/kernels.py:spmv_tpu2  (per-block patch
 //     tables) as it serves mg/tpu_backend.py:bound_eval_neumann and
-//     push_inhomog_to_rhs, fusing the XLA take/scatter epilogue into the
-//     kernel.
+//     push_inhomog_to_rhs, and models/fracstep_tpu.py:_mv32 (the scatter
+//     of the compact Neumann rows' products into the compatible PPE
+//     matvec), fusing the XLA take/scatter epilogue into the kernel.
 //
 // In-place safety: the reference scatters after every row is computed
 // (Jacobi across the table's rows).  Here a row's epilogue may run while
 // another row still gathers, which is the same only if no compact row reads
 // the target row of another compact row.  Neumann stencils exclude other
 // boundary points, and mg/gpu_backend.py checks it when it repacks a level
-// (it raises otherwise); the pushdown runs out of place.
+// (it raises otherwise); the pushdown runs out of place, and the scatter
+// writes a vector it never reads.
 //
 // What bounds it on an H100: nothing on the card — a few hundred to a few
 // thousand rows of ~20-70 entries (tens of KB) per call; it is a launch.
@@ -72,8 +77,10 @@ compact_rows_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
   if (mode == 0) {
     const T d = diag[row];
     out[r] = (b[r] - (acc - d * x[r])) / d;
-  } else {
+  } else if (mode == 1) {
     out[r] = b[r] - acc;
+  } else {
+    out[r] = acc;
   }
 }
 

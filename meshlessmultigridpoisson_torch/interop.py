@@ -9,6 +9,11 @@ converted leaf by leaf to numpy and then to dicts (``dataclasses.asdict``)
 becomes a port hierarchy holding the SAME operators, so the port's solvers
 can be held against the reference independently of setup parity.
 ``hierarchy_to_numpy`` / ``state_to_numpy`` go the other way.
+
+``fracstep_problem_from_numpy`` / ``fracstep_state_from_numpy`` do the same
+for the fractional-step problem and state (the reference package's
+``FracStepProblem`` / ``FracStepState`` fields), so both packages step
+identical operators.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from meshlessmultigridpoisson_torch.config import FracStepConfig
+from meshlessmultigridpoisson_torch.geometry.pointclouds import PointCloud
 from meshlessmultigridpoisson_torch.mg.vcycle import Hierarchy, MGState
 from meshlessmultigridpoisson_torch.ops.ell import EllMatrix
 from meshlessmultigridpoisson_torch.stencil.operators import CompactRows, LevelOperator
@@ -70,6 +77,39 @@ def state_from_numpy(tree: dict) -> MGState:
     """Port ``MGState`` from a dict with x, x_lag, b, b_lag sequences."""
     return MGState(**{k: tuple(_t(v) for v in tree[k])
                       for k in ("x", "x_lag", "b", "b_lag")})
+
+
+def fracstep_state_from_numpy(tree: dict):
+    """Port ``FracStepState`` from a dict of its fields (``mg``: as for
+    ``state_from_numpy``)."""
+    from meshlessmultigridpoisson_torch.models.fracstep import FracStepState
+
+    return FracStepState(
+        mg=state_from_numpy(tree["mg"]),
+        **{k: _t(tree[k]) for k in ("u", "v", "u_old", "v_old", "u_hat", "v_hat")})
+
+
+def fracstep_problem_from_numpy(tree: dict):
+    """Port ``FracStepProblem`` from a dict of its fields: ``hierarchy`` /
+    ``dx`` / ``dy`` / ``lap`` / ``state0`` as nested dicts of numpy arrays,
+    ``clouds`` as dicts of PointCloud fields, ``config`` as a dict of
+    FracStepConfig fields."""
+    from meshlessmultigridpoisson_torch.models.fracstep import FracStepProblem
+
+    clouds = [PointCloud(points=np.array(c["points"]),
+                         boundaries=[np.array(b) for b in c["boundaries"]],
+                         normals=np.array(c["normals"]), geomtype=c["geomtype"])
+              for c in tree["clouds"]]
+    return FracStepProblem(
+        hierarchy=hierarchy_from_numpy(tree["hierarchy"]),
+        clouds=clouds,
+        dx=_ell(tree["dx"]), dy=_ell(tree["dy"]), lap=_ell(tree["lap"]),
+        **{k: _t(tree[k]) for k in ("bmask", "u_bc", "v_bc", "normals")},
+        config=FracStepConfig(**tree["config"]),
+        state0=fracstep_state_from_numpy(tree["state0"]),
+        compatible_ppe=bool(tree["compatible_ppe"]),
+        lap_scale=float(tree["lap_scale"]),
+    )
 
 
 def _to_numpy(obj):

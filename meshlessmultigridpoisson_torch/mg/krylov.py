@@ -41,6 +41,10 @@ def full_matvec(op, x, x_lag):
     return y, y_lag
 
 
+def _dot(u, v):
+    return (u * v).sum()  # an elementwise product and a sum: no cuBLAS call
+
+
 def _precond(hier0: Hierarchy, v, v_lag):
     """z ~ A^-1 v via one V-cycle from zero (linear in v)."""
     fine_i = len(hier0.levels) - 1
@@ -63,6 +67,7 @@ def solve_bicgstab(
     state: MGState,
     tol,
     max_iters: int = 100,
+    matvec=None,
 ):
     """Preconditioned BiCGStab on the bordered fine system.
 
@@ -71,6 +76,11 @@ def solve_bicgstab(
     on ||r||_1 / ||b||_1 like the reference (multigrid.cpp:112-115).  On a
     breakdown the previous iterate is kept and the residual reported as the
     sentinel -1.
+
+    ``matvec(x, x_lag) -> (y, y_lag)`` optionally replaces the fine-level
+    operator in the OUTER Krylov system while ``hier`` stays the
+    preconditioner: the matrix-free compatible PPE (models/fracstep.py)
+    solves div o grad with a standard-Laplacian V-cycle preconditioner.
     """
     hier0 = homogeneous_hierarchy(hier)
     fine_i = len(hier.levels) - 1
@@ -82,10 +92,12 @@ def solve_bicgstab(
     bnorm = b.abs().sum() + b_lag.abs()
 
     def mv(p, pl):
+        if matvec is not None:
+            return matvec(p, pl)
         return full_matvec(op, p, pl)
 
-    def dot(u, ul, v, vl):  # an elementwise product and a sum: no cuBLAS call
-        return (u * v).sum() + ul * vl
+    def dot(u, ul, v, vl):
+        return _dot(u, v) + ul * vl
 
     def l1(u, ul):
         return u.abs().sum() + ul.abs()
@@ -131,3 +143,41 @@ def solve_bicgstab(
     x = torch.where(op.dirichlet_mask > 0, op.dirichlet_values, x)
     x = sm.bound_eval_neumann(op, x, state.b[fine_i])
     return state.replace_level(fine_i, x=x, x_lag=xl), it, resid
+
+
+def bicgstab_matfree(matvec, b, x0, tol, max_iters: int = 100):
+    """Plain (unpreconditioned) BiCGStab for well-conditioned systems
+    (the implicit-diffusion predictor's I - dt nu Lap).  Tolerance on the
+    relative 2-norm; on a breakdown the previous iterate is kept and the
+    residual reported as the sentinel -1.  Returns (x, iterations, resid).
+    """
+    tiny = 1e-300
+
+    def safe(v):
+        return torch.where(v == 0, torch.full_like(v, tiny), v)
+
+    bnorm = float(_dot(b, b).sqrt()) or 1.0
+    x = x0
+    r = b - matvec(x0)
+    rhat, p = r, r
+    rho = _dot(rhat, r)
+    resid = float(_dot(r, r).sqrt()) / bnorm
+    it = 0
+    while resid >= tol and it < max_iters:
+        v = matvec(p)
+        alpha = rho / safe(_dot(rhat, v))
+        s = r - alpha * v
+        t = matvec(s)
+        om = _dot(t, s) / safe(_dot(t, t))
+        x2 = x + alpha * p + om * s
+        r2 = s - om * t
+        rho2 = _dot(rhat, r2)
+        beta = (rho2 / safe(rho)) * (alpha / safe(om))
+        p2 = r2 + beta * (p - om * v)
+        resid2 = float(_dot(r2, r2).sqrt()) / bnorm
+        it += 1
+        if resid2 != resid2 or resid2 == float("inf"):
+            resid = -1.0
+            break
+        x, r, p, rho, resid = x2, r2, p2, rho2, resid2
+    return x, it, resid

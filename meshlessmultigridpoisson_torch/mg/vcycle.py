@@ -186,3 +186,20 @@ def run_v_cycles(hier: Hierarchy, state: MGState, num_cycles: int):
         state, resid = v_cycle(hier, state)
         hist.append(resid)
     return state, torch.stack(hist)
+
+
+def solve_to_tolerance(hier: Hierarchy, state: MGState, tol, max_cycles: int = 200):
+    """Cycle until the finest relative residual < tol (the PPE loop,
+    FractionalStepSim.cpp:139-142), with fine Neumann rows re-solved after
+    each cycle (:141).  Returns (state, cycles_used, final_residual)."""
+    fine = hier.num_levels - 1
+    op = hier.levels[fine]
+    resid = float(mg_residual(hier, state))
+    cycles = 0
+    while resid >= tol and cycles < max_cycles:
+        state, _ = v_cycle(hier, state, residual=False)
+        xf = sm.bound_eval_neumann(op, state.x[fine], state.b[fine])
+        state = state.replace_level(fine, x=xf)
+        resid = float(mg_residual(hier, state))
+        cycles += 1
+    return state, cycles, resid

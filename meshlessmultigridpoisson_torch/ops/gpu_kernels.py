@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 Three kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
-the five Pallas TPU kernels on the Poisson solve path of the reference
-package:
+the five Pallas TPU kernels on the Poisson solve and fractional-step paths
+of the reference package:
 
 =================================  ===========================================
 CUDA kernel (role counter)         TPU kernel it replaces
@@ -19,6 +19,9 @@ CUDA kernel (role counter)         TPU kernel it replaces
                                    boundary-row re-solve after every sweep
 ``compact_rows`` (``push2``)       ops/kernels.py ``spmv_tpu2``: condensation
                                    pushdown of the right-hand side
+``compact_rows`` (``ppe2``)        ops/kernels.py ``spmv_tpu2``: the compatible
+                                   NS pressure matvec's Neumann rows
+                                   (models/fracstep_tpu.py ``_mv32``)
 =================================  ===========================================
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
@@ -62,7 +65,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep7": 0, "sweep8": 0, "bound2": 0,
-          "push2": 0}
+          "push2": 0, "ppe2": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -302,7 +305,7 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # the epilogue each role runs (the kernel's ``mode`` argument)
-_COMPACT_MODE = {"bound2": 0, "push2": 1}
+_COMPACT_MODE = {"bound2": 0, "push2": 1, "ppe2": 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,8 +313,9 @@ class DeviceCompact:
     """A compact table of rows of a big operator (``CompactRows``), on a
     device: row-major ELL with global int32 columns, the target row of each
     compact row in the big row space (padding slots: ``>= n_pad``) and the
-    big matrix's diagonal there.  ``role``: "bound2" (Neumann re-solve) or
-    "push2" (condensation pushdown)."""
+    big matrix's diagonal there.  ``role``: "bound2" (Neumann re-solve),
+    "push2" (condensation pushdown) or "ppe2" (scatter of the rows'
+    products, the compatible PPE matvec)."""
 
     vals: torch.Tensor  # [m_pad, width]
     cols: torch.Tensor  # [m_pad, width] int32
@@ -356,6 +360,9 @@ def compact_rows_plain(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor):
         d = C.diag[keep]
         x[r] = (b[r] - (y[keep] - d * x[r])) / d
         return x
+    if C.role == "ppe2":
+        b[r] = y[keep]
+        return b
     out = b.clone()
     out[r] = b[r] - y[keep]
     return out
@@ -367,6 +374,8 @@ def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Te
     "bound2": re-solve each target row for its own unknown, IN PLACE on
     ``x``; returns ``x``.  "push2": returns a new vector, ``b`` with
     ``b[r] - (C x)_i`` at the target rows (callers pass ``x = b``).
+    "ppe2": writes ``(C x)_i`` into ``b[r]`` IN PLACE (``b`` is the
+    matvec's output, never ``x``) and returns ``b``.
     An empty table (``nrows == 0``) launches nothing.
     """
     if x.device.type == "cpu" and C.vals.device.type == "cpu":
@@ -381,13 +390,17 @@ def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Te
     _check("x", x, dev, dt, (C.n_pad,))
     _check("b", b, dev, dt, (C.n_pad,))
     mode = _COMPACT_MODE[C.role]
-    out = x if mode == 0 else b.clone()
+    if mode == 2 and x.data_ptr() == b.data_ptr():
+        raise ValueError("compact_rows ppe2: the output must not alias x")
+    out = b.clone() if mode == 1 else (x if mode == 0 else b)
     if C.nrows == 0:
         return out
     fn = getattr(_load(), f"mmp_compact_rows_{_SUFFIX[dt]}")
+    # the scatter reads no b: hand it x, so no read pointer aliases out
+    b_in = x if mode == 2 else b
     rc = fn(C.vals.data_ptr(), C.cols.data_ptr(), C.width, C.m_pad,
             C.rows.data_ptr(), C.diag.data_ptr(), C.n_pad, x.data_ptr(),
-            b.data_ptr(), out.data_ptr(), mode,
+            b_in.data_ptr(), out.data_ptr(), mode,
             torch.cuda.current_stream(dev).cuda_stream)
     _launch_ok(rc, "compact_rows")
     COUNTS[C.role] += 1

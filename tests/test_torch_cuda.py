@@ -147,6 +147,34 @@ def test_compact_rows_matches_plain(compact, role, dtype, tol):
             ref.abs().max())
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_compact_rows_scatter_matches_plain(compact, dtype, tol):
+    """Role ppe2: y[r] = (C x)_i in place on y, sentinel slots write nothing,
+    x is left alone; an output aliasing x is refused."""
+    import dataclasses
+
+    table, only_diag = compact
+    C = dataclasses.replace(gk.device_compact(table, dtype, "cuda", "bound2"),
+                            role="ppe2")
+    x, y = _rand(C.n_pad, dtype, 5), _rand(C.n_pad, dtype, 6)
+    x0 = x.clone()
+    before = gk.COUNTS["ppe2"]
+    out = gk.compact_rows(C, x, y.clone())
+    torch.cuda.synchronize()
+    assert gk.COUNTS["ppe2"] == before + 1
+    ref = gk.compact_rows_plain(C, x, y.clone())
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(x, x0)
+    rows = table.rows[: table.nrows].long().cuda()
+    untouched = torch.ones(C.n_pad, dtype=torch.bool, device="cuda")
+    untouched[rows] = False  # sentinel slots wrote nothing
+    assert torch.equal(out[untouched], y[untouched])
+    # the diagonal-only row: y[r] = 2.5 x[r]
+    assert abs(float(out[only_diag] - 2.5 * x[only_diag])) <= tol * float(ref.abs().max())
+    with pytest.raises(ValueError, match="alias"):
+        gk.compact_rows(C, x, x)
+
+
 def test_wrapper_refuses_wrong_dtype(et):
     A = gk.device_ell(et, torch.float32, "cuda", "spmv6")
     with pytest.raises(ValueError):
@@ -170,3 +198,22 @@ def test_cli_solve_on_card_runs_every_kernel():
         assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact", "v8-colored"]
         launches = rec.extra["launches"]
         assert all(launches[r] > 0 for r in roles), launches
+
+
+def test_cli_ns_on_card_runs_every_kernel():
+    """The NS flow at a small ladder: every step's PPE reaches its
+    tolerance and the path launches the SpMV and sweep roles, the boundary
+    re-solve and the compatible-PPE scatter."""
+    import math
+
+    from meshlessmultigridpoisson_torch.apps import cli
+
+    rec, prob, last = cli.run_ns(
+        ["ns", "--device", "cuda", "--sizes", "170", "600", "--deg", "4",
+         "--steps", "5"])
+    assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact"]
+    launches = rec.extra["launches"]
+    assert all(launches[r] > 0 for r in ("spmv6", "sweep7", "bound2", "ppe2")), launches
+    assert launches["push2"] == 0
+    assert all(math.isfinite(h) for h in rec.residual_history)
+    assert all(r < 1e-10 for r in rec.extra["ppe_residual"])
