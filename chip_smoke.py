@@ -14,33 +14,51 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    Dirichlet, then Neumann) and hold every kernel against its plain PyTorch
    version on the same inputs on the card: on the Dirichlet hierarchy
    ``ell_spmv`` (f32 and f64) on the fine and coarsest levels, one
-   restriction and one prolongation, and ``block_oneshot_sweep`` (f32 and
-   f64) on the fine level in colored order and on the coarsest level in
-   storage order; on the Neumann hierarchy ``compact_rows`` (f32 and f64)
-   on the fine level's boundary table (re-solve) and condensation table
-   (pushdown).  Prints each comparison's relative error and both times;
-3. run the port's ``solve`` entry point in-process on both configurations
-   (one untimed outer pass, then the timed solve; launch counters set to 0
-   before each run and read after it), print each SolveRecord, and check:
-   level kernels ``[v7-exact, v8-colored x3]``; every kernel role of the
-   path launched (Dirichlet: the four SpMV and sweep roles; Neumann: those
-   and both ``compact_rows`` roles); relative L1 residual < 1e-8,
-   re-checked from the returned (x, x_lag) with the plain f64 SpMV, border
-   row included; L1 error < 1e-6;
+   restriction and one prolongation; ``block_oneshot_sweep`` (f32 and f64)
+   on the fine level in colored order (``sweep8``) and in storage order
+   (``sweep6``) and on the coarsest level in storage order (``sweep7``);
+   the bf16-K instance of all three against the bf16 plain version;
+   ``stream_ceiling`` at the bench's shape against its plain reduction;
+   on the Neumann hierarchy ``compact_rows`` (f32 and f64) on the fine
+   level's boundary table (re-solve) and condensation table (pushdown).
+   Prints each comparison's relative error, the kernel's and the plain
+   version's time, the kernel's bound (bytes over 3.35 TB/s or operations
+   over the arithmetic peak, utils/profiling.py) and, for the SpMV and
+   compact-row roles, the time of a ``torch.sparse`` CSR matvec over the
+   same rows (a yardstick the port never calls);
+3. run the port's ``solve`` entry point in-process (one untimed outer pass,
+   then the timed solve; launch counters set to 0 before each run and read
+   after it), print each SolveRecord, and check: Dirichlet, then on the
+   same host problem (repacked, not rebuilt) ``--sweep-order exact`` and
+   ``--fast-k``, then Neumann.  Level kernels ``[v7-exact,
+   v8-colored x3]`` (exact: ``[v7-exact, v6-oneshot x3]``; fast-k: every K
+   in bf16); every kernel role of the path launched (exact: ``spmv6``,
+   ``sweep7``, ``sweep6``, with ``spmv8`` and ``sweep8`` at 0; Neumann adds
+   both ``compact_rows`` roles); relative L1 residual < 1e-8, re-checked
+   from the returned (x, x_lag) with the plain f64 SpMV, border row
+   included; L1 error < 1e-6.  After the exact path's counts are read, it
+   runs once more with ``--profile`` and its per-level table is printed,
+   each time at or above its bound;
 4. the fractional-step Navier-Stokes path (``cli ns``, Kovasznay, the
    reference program's default run at its default width and depth: sizes
    170/600/2500/10000, deg 6): on its problem, ``compact_rows`` role
    ``ppe2`` (f32, f64) on the fine boundary table and ``ell_spmv`` on the
    derivative operators against their plain versions; then ``run_ns``
    in-process for 12 steps from rest (counts set to 0 before,
-   read after), checking level kernels ``[v7-exact x3, v8-colored]``, the
+   read after), checking level kinds ``[v7-exact x3, v8-colored]``, the
    path's roles (SpMV, sweeps, ``bound2``, ``ppe2``) launched, every
    fs_residual finite, the steps 0, 4, 8, ... matching the reference's TPU
    record ``results/ns_tpu_r5.json`` within 2e-3 relative, and the last
    step's PPE solve (before the p_relax blend) re-checked with a plain f64
    composition of the compatible operator below 1e-9;
-5. print a JSON line of per-kernel results, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+5. the kernel bench (``meshlessmultigridpoisson_torch.bench``) in-process
+   on its 1M-row operator (counts set to 0 before, read after; the bench
+   holds the stream probe at its timed depth and one sweep of each timed
+   kind against their plain versions before it times them): prints its
+   JSON line; checks the SpMV spot check, ``stream14``, ``spmv6``,
+   ``sweep6`` and ``sweep8`` launched, and every ``pct_of_bound`` <= 105;
+6. print a JSON line of per-kernel results, the total time, then, as the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package next to it, it exits with a
 non-zero code and prints no result.  ``--sizes`` shrinks the ladder for a
@@ -51,6 +69,7 @@ applies to the default.  The NS path always runs at its default width.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -60,12 +79,16 @@ import time
 
 SLICE_SIZES = [2500, 10000, 35000, 150000]
 EXPECT_KERNELS = ["v7-exact", "v8-colored", "v8-colored", "v8-colored"]
+EXACT_KERNELS = ["v7-exact", "v6-oneshot", "v6-oneshot", "v6-oneshot"]
 ROLES = {
     # role: (kernel, route source, TPU kernel replaced)
     "spmv6": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
               "meshlessmultigridpoisson_tpu/ops/kernels6.py:407"),
     "spmv8": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
               "meshlessmultigridpoisson_tpu/ops/kernels8.py:376"),
+    "sweep6": ("block_oneshot_sweep",
+               "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+               "meshlessmultigridpoisson_tpu/ops/kernels6.py:515"),
     "sweep7": ("block_oneshot_sweep",
                "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels6.py:812"),
@@ -78,8 +101,12 @@ ROLES = {
               "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
     "ppe2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
              "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
+    "stream14": ("stream_ceiling", "meshlessmultigridpoisson_torch/csrc/stream_ceiling.cu",
+                 "bench.py:118"),
 }
 DIRICHLET_ROLES = ("spmv6", "spmv8", "sweep7", "sweep8")
+EXACT_ROLES = ("spmv6", "sweep6", "sweep7")
+BENCH_ROLES = ("spmv6", "sweep6", "sweep8", "stream14")
 NEUMANN_ROLES = DIRICHLET_ROLES + ("bound2", "push2")
 # the NS main path: the reference program's default run at its own width
 # and depth (cli ns defaults), S steps from rest
@@ -96,29 +123,20 @@ NS_HIST_RTOL = 2e-3
 # 128-term K product on top.  f64: the same reorderings at 1e-16 per op.
 # compact_rows is a gather-sum like the SpMV (its re-solve epilogue adds
 # two operations per row): the SpMV's tolerances.
+# The bf16-K sweep against its bf16 plain version: 1e-2 of max |dx| (both
+# round t to bf16; a t element on the other side of a rounding boundary
+# moves its column's contribution by one bf16 ulp, 2^-8).  The stream
+# probe sums small integers: exact.
 TOL = {("spmv", "f32"): 1e-5, ("spmv", "f64"): 1e-12,
        ("sweep", "f32"): 1e-4, ("sweep", "f64"): 1e-11,
-       ("compact", "f32"): 1e-5, ("compact", "f64"): 1e-12}
+       ("compact", "f32"): 1e-5, ("compact", "f64"): 1e-12,
+       ("sweep", "bf16k"): 1e-2, ("stream", "f32"): 0.0}
+PCT_OF_BOUND_MAX = 105.0
 
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
-
-
-def time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def bordered_residual(op, b, b_lag, x, x_lag) -> float:
@@ -183,6 +201,7 @@ def compatible_residual(prob, b, x, x_lag) -> float:
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", type=int, nargs="+", default=SLICE_SIZES)
     args = ap.parse_args(argv)
@@ -193,6 +212,7 @@ def main(argv=None) -> int:
         return fail("torch.cuda.is_available() is False")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from meshlessmultigridpoisson_torch import bench
         from meshlessmultigridpoisson_torch.apps import cli
         from meshlessmultigridpoisson_torch.mg.gpu_backend import (
             gpu_hierarchy,
@@ -200,6 +220,7 @@ def main(argv=None) -> int:
         )
         from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
         from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+        from meshlessmultigridpoisson_torch.utils import profiling as pf
     except ImportError as e:
         return fail(f"the port package is not next to this script ({e})")
     dev = torch.device("cuda", 0)
@@ -212,6 +233,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    card_name = torch.cuda.get_device_name(0)
+    pf.peaks(card_name)  # the bounds need the card's published peaks
     t0 = time.perf_counter()
     gk.build(verbose=True)
     gk._load()
@@ -234,15 +257,28 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cpu").manual_seed(0)
     results = {r: [] for r in ROLES}
 
-    def record(role, label, dtype, err, scale, ms, plain_ms, kind):
+    def record(role, label, tol_key, err, scale, ms, plain_ms, nbytes, flops,
+               dtype, library_ms=None):
         rel = err / max(scale, 1e-300)
-        tol = TOL[(kind, dtype)]
-        print(f"  {label:<44s} rel err {rel:.3e} (tol {tol:.0e})  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
+        tol = TOL[tol_key]
+        b_ms, by = pf.bound_ms(nbytes, flops, dtype, card_name)
+        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        print(f"  {label:<52s} rel err {rel:.3e} (tol {tol:.0e})  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+              f"({by}){lib}", flush=True)
         results[role].append(dict(label=label, max_abs_err=err, rel_err=rel,
-                                  ms=ms, plain_ms=plain_ms))
+                                  ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=by, library_ms=library_ms))
         if not rel <= tol:
             raise AssertionError(f"{label}: relative error {rel:.3e} > {tol:.0e}")
+
+    def ms_of(op, x, k):
+        """ms per application of ``op(x)``: k back-to-back calls after a
+        warm-up, between CUDA events."""
+        return pf.chain_time(op, x, k=k, reps=1) * 1e3
+
+    def dname(dtype):
+        return "f32" if dtype == torch.float32 else "f64"
 
     def check_spmv(role, label, A):
         x = torch.randn(A.ncols, generator=gen, dtype=torch.float64).to(
@@ -251,31 +287,44 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         yp = gk.ell_spmv_plain(A.vals, A.cols, x)
         err = float((y - yp).abs().max())
-        ms = time_ms(lambda: gk.ell_spmv(A, x), 50)
-        pms = time_ms(lambda: gk.ell_spmv_plain(A.vals, A.cols, x), 10)
-        dt = "f32" if A.vals.dtype == torch.float32 else "f64"
-        record(role, f"ell_spmv {dt} {label}", dt, err, float(yp.abs().max()),
-               ms, pms, "spmv")
+        ms = ms_of(lambda v: gk.ell_spmv(A, v), x, 50)
+        pms = ms_of(lambda v: gk.ell_spmv_plain(A.vals, A.cols, v), x, 10)
+        csr = pf.library_csr(A.vals, A.cols, A.ncols)
+        lms = ms_of(lambda v: csr @ v, x, 50)
+        dt = dname(A.vals.dtype)
+        record(role, f"ell_spmv {dt} {label}", ("spmv", dt), err,
+               float(yp.abs().max()), ms, pms, pf.spmv_bytes(A), pf.spmv_flops(A),
+               A.vals.dtype, lms)
 
-    def check_sweep(label, lv):
-        sw = lv.sweep
-        n = lv.n_pad
-        x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, sw.kT.dtype)
-        b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, sw.kT.dtype)
-        xl = torch.zeros((), dtype=sw.kT.dtype, device=dev)
+    def check_sweep(label, sw):
+        dtype = sw.A.vals.dtype
+        n = sw.A.nrows_pad
+        x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        xl = torch.zeros((), dtype=dtype, device=dev)
         xk = gk.block_oneshot_sweep(sw, x0.clone(), xl, b)
         torch.cuda.synchronize()
         xp = gk.block_oneshot_sweep_plain(sw, x0.clone(), xl, b)
         err = float((xk - xp).abs().max())
         xs = x0.clone()
-        ms = time_ms(lambda: gk.block_oneshot_sweep(sw, xs, xl, b), 20)
-        pms = time_ms(lambda: gk.block_oneshot_sweep_plain(sw, xs, xl, b), 3)
-        dt = "f32" if sw.kT.dtype == torch.float32 else "f64"
+        ms = ms_of(lambda v: gk.block_oneshot_sweep(sw, v, xl, b), xs, 20)
+        pms = ms_of(lambda v: gk.block_oneshot_sweep_plain(sw, v, xl, b), xs, 3)
+        if sw.kT.dtype == torch.bfloat16:
+            dt, scale = "bf16k", float((xp - x0).abs().max())
+        else:
+            dt, scale = dname(dtype), float(xp.abs().max())
         record(sw.role, f"block_oneshot_sweep {dt} {label} "
-               f"({sw.nphases} launches)", dt, err, float(xp.abs().max()),
-               ms, pms, "sweep")
+               f"({sw.nphases} launches)", ("sweep", dt), err, scale, ms, pms,
+               pf.sweep_bytes(sw), pf.sweep_flops(sw), dtype)
 
-    from meshlessmultigridpoisson_torch.ops.gpu_kernels import device_ell
+    def storage_order(sw, role):
+        nb = sw.A.nrows_pad // gk.LANES
+        return dataclasses.replace(
+            sw, order=torch.arange(nb, dtype=torch.int32, device=dev),
+            phase_ptr=(0, nb), serial=True, role=role)
+
+    def bf16k(sw):
+        return dataclasses.replace(sw, kT=sw.kT.to(torch.bfloat16))
 
     print("kernel vs plain (same inputs, on the card):", flush=True)
     fine32, coarse32 = g32.levels[-1], g32.levels[0]
@@ -286,13 +335,33 @@ def main(argv=None) -> int:
     for name, ell in (("restriction fine->next", hier.restrict[-1]),
                       ("prolongation next->fine", hier.prolong[-1])):
         for dt in (torch.float32, torch.float64):
-            check_spmv("spmv6", name, device_ell(ell, dt, dev, "spmv6"))
-    check_sweep("fine, colored order", fine32)
-    check_sweep("fine, colored order", fine64)
-    check_sweep("coarsest, storage order", coarse32)
-    check_sweep("coarsest, storage order", coarse64)
+            check_spmv("spmv6", name, gk.device_ell(ell, dt, dev, "spmv6"))
+    check_sweep("fine, colored order", fine32.sweep)
+    check_sweep("fine, colored order", fine64.sweep)
+    check_sweep("fine, storage order", storage_order(fine32.sweep, "sweep6"))
+    check_sweep("fine, storage order", storage_order(fine64.sweep, "sweep6"))
+    check_sweep("coarsest, storage order", coarse32.sweep)
+    check_sweep("coarsest, storage order", coarse64.sweep)
+    check_sweep("fine, colored order", bf16k(fine32.sweep))
+    check_sweep("fine, storage order", bf16k(storage_order(fine32.sweep, "sweep6")))
+    check_sweep("coarsest, storage order", bf16k(coarse32.sweep))
     del g32, coarse64, fine64, hier, prob
     torch.cuda.empty_cache()
+
+    # the bench's stream probe at its own shape: sums of small integers
+    sv = torch.randint(0, 4, (bench.STREAM_ROWS, gk.STREAM_COLS), generator=gen).to(
+        dev, torch.float32)
+    sc = torch.randint(0, 4, (bench.STREAM_ROWS, gk.STREAM_COLS), generator=gen,
+                       dtype=torch.int32).to(dev)
+    out = gk.stream_ceiling(sv, sc, bench.STREAM_TILE)
+    torch.cuda.synchronize()
+    ref = gk.stream_ceiling_plain(sv, sc, bench.STREAM_TILE)
+    ms = ms_of(lambda v: gk.stream_ceiling(v, sc, bench.STREAM_TILE), sv, 20)
+    pms = ms_of(lambda v: gk.stream_ceiling_plain(v, sc, bench.STREAM_TILE), sv, 20)
+    record("stream14", "stream_ceiling f32+i32 2 x [262144, 128] (1 pass)",
+           ("stream", "f32"), float((out - ref).abs().max()), float(ref.abs().max()),
+           ms, pms, sv.nbytes + sc.nbytes + out.nbytes, 2 * sv.numel(), torch.float32)
+    del sv, sc, out, ref
 
     def check_compact(label, C):
         """Kernel vs plain on one table: "bound2" re-solves x in place,
@@ -314,12 +383,14 @@ def main(argv=None) -> int:
         if not torch.equal(out[untouched], base[untouched]):
             raise AssertionError(f"compact_rows {label}: wrote outside its rows")
         xs, bs = xin.clone(), b.clone()
-        ms = time_ms(lambda: gk.compact_rows(C, xs, bs), 200)
-        pms = time_ms(lambda: gk.compact_rows_plain(C, xs, bs), 50)
-        dt = "f32" if C.vals.dtype == torch.float32 else "f64"
+        ms = ms_of(lambda v: gk.compact_rows(C, v, bs), xs, 200)
+        pms = ms_of(lambda v: gk.compact_rows_plain(C, v, bs), xs, 50)
+        csr = pf.library_csr(C.vals, C.cols, C.n_pad)
+        lms = ms_of(lambda v: csr @ v, xs, 200)
+        dt = dname(C.vals.dtype)
         record(C.role, f"compact_rows {dt} {label} ({C.nrows} of {C.m_pad} rows, "
-               f"width {C.width})", dt, err, float(ref.abs().max()), ms, pms,
-               "compact")
+               f"width {C.width})", ("compact", dt), err, float(ref.abs().max()),
+               ms, pms, pf.compact_bytes(C), pf.compact_flops(C), C.vals.dtype, lms)
 
     t0 = time.perf_counter()
     prob = make_poisson_problem(**geom, neumann=True, device=dev)
@@ -339,25 +410,43 @@ def main(argv=None) -> int:
     argv_solve = ["solve", "--device", "cuda", "--geom", "square_with_circle",
                   "--sizes", *map(str, args.sizes), "--deg", "6",
                   "--ordering", "kdtile", "--block-rows", "512", "--tol", "1e-8"]
+    full = args.sizes == SLICE_SIZES
     launches = {}
-    for path, extra, roles in (("dirichlet", [], DIRICHLET_ROLES),
-                               ("neumann", ["--neumann"], NEUMANN_ROLES)):
+    # (path, extra flags, roles that must launch, roles that must not,
+    #  expected level kinds, reuse the previous path's host problem)
+    paths = (("dirichlet", [], DIRICHLET_ROLES, (), EXPECT_KERNELS, False),
+             ("exact", ["--sweep-order", "exact"], EXACT_ROLES,
+              ("spmv8", "sweep8"), EXACT_KERNELS, True),
+             ("fast-k", ["--fast-k"], DIRICHLET_ROLES, (), EXPECT_KERNELS, True),
+             ("neumann", ["--neumann"], NEUMANN_ROLES, (), EXPECT_KERNELS, False))
+    prob = None
+    for path, extra, roles, idle_roles, expect, reuse in paths:
         argv = argv_solve + extra
         print(f"main path ({path}): python -m meshlessmultigridpoisson_torch.apps.cli "
-              + " ".join(argv), flush=True)
+              + " ".join(argv) + (" (host problem reused)" if reuse else ""), flush=True)
+        if not reuse:
+            prob = None
+            torch.cuda.empty_cache()
         gk.reset_counts()
-        rec, prob, x, xl = cli.run_solve(argv)
+        rec, prob, x, xl = cli.run_solve(argv, problem=prob)
         torch.cuda.synchronize()
         launches[path] = dict(gk.COUNTS)
         print(rec.to_json(), flush=True)
         print(f"launches during the {path} main path: {launches[path]}", flush=True)
 
         kinds = rec.extra["level_kernels"]
-        if args.sizes == SLICE_SIZES and kinds != EXPECT_KERNELS:
-            return fail(f"{path}: level kernels {kinds} != {EXPECT_KERNELS}")
-        idle = [r for r in roles if launches[path][r] == 0]
+        if full and kinds != expect:
+            return fail(f"{path}: level kernels {kinds} != {expect}")
+        # a cut ladder may have no level past the union bound (no sweep6)
+        idle = [r for r in roles if launches[path][r] == 0 and (full or r != "sweep6")]
         if idle:
             return fail(f"{path}: kernel roles never launched on the main path: {idle}")
+        busy = [r for r in idle_roles if launches[path][r] != 0]
+        if busy:
+            return fail(f"{path}: roles off this path launched: {busy}")
+        want_k = "torch.bfloat16" if path == "fast-k" else "torch.float32"
+        if any(d != want_k for d in rec.extra["level_k_dtypes"]):
+            return fail(f"{path}: K dtypes {rec.extra['level_k_dtypes']}, want {want_k}")
         if not rec.final_residual < 1e-8:
             return fail(f"{path}: final residual {rec.final_residual:.3e} >= 1e-8")
         # independent re-check: plain f64 gather-sum SpMV on the returned
@@ -370,8 +459,20 @@ def main(argv=None) -> int:
             return fail(f"{path}: re-checked residual {recheck:.3e} >= 1e-8")
         if not rec.l1_error < 1e-6:
             return fail(f"{path}: l1_error {rec.l1_error:.3e} >= 1e-6")
-        del rec, prob, x, xl
-        torch.cuda.empty_cache()
+        if path == "exact":  # the per-level profile, after the counts are read
+            rec, *_ = cli.run_solve(argv + ["--profile"], problem=prob)
+            print(f"{path}: per-level profile, cli solve {' '.join(extra)} "
+                  f"--profile ({card}):", flush=True)
+            for row in rec.extra["per_level"]:
+                print("  " + json.dumps(row), flush=True)
+            slow = [r["level"] for r in rec.extra["per_level"]
+                    if not 0 < r["sweep_bound_ms"] <= r["sweep_ms"]
+                    or not 0 < r["matvec_bound_ms"] <= r["matvec_ms"]]
+            if slow:
+                return fail(f"{path}: per-level time below its bound at levels {slow}")
+        del rec, x, xl
+    del prob
+    torch.cuda.empty_cache()
 
     # ---- 4. the fractional-step Navier-Stokes path ---------------------------
     from meshlessmultigridpoisson_torch.models.fracstep import build_fracstep_problem
@@ -444,7 +545,26 @@ def main(argv=None) -> int:
     del rec, prob, last
     torch.cuda.empty_cache()
 
-    # ---- 5. results ----------------------------------------------------------
+    # ---- 5. the kernel bench -------------------------------------------------
+    print("main path (bench): python -m meshlessmultigridpoisson_torch.bench", flush=True)
+    gk.reset_counts()
+    res = bench.run()
+    torch.cuda.synchronize()
+    launches["bench"] = dict(gk.COUNTS)
+    print(json.dumps(res), flush=True)
+    print(f"launches during the bench: {launches['bench']}", flush=True)
+    idle = [r for r in BENCH_ROLES if launches["bench"][r] == 0]
+    if idle:
+        return fail(f"bench: kernel roles never launched: {idle}")
+    over = {k: r["pct_of_bound"] for k, r in res["extra"]["kernels_ms"].items()
+            if not r["pct_of_bound"] <= PCT_OF_BOUND_MAX}
+    if over:
+        return fail(f"bench: time below the bound (pct_of_bound > {PCT_OF_BOUND_MAX}): "
+                    f"{over}")
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- 6. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
         by_path = {p: n[role] for p, n in launches.items()}
@@ -454,7 +574,11 @@ def main(argv=None) -> int:
                                 launches=sum(by_path.values()),
                                 launches_by_path=by_path,
                                 max_abs_err=c["max_abs_err"],
-                                ms=c["ms"], plain_ms=c["plain_ms"]))
+                                ms=c["ms"], plain_ms=c["plain_ms"],
+                                bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                                library_ms=c["library_ms"]))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
     python -m meshlessmultigridpoisson_torch.apps.cli solve --device cuda \\
         --geom square_with_circle --sizes 2500 10000 35000 150000 --deg 6 \\
-        --ordering kdtile --block-rows 512 --tol 1e-8 [--neumann]
+        --ordering kdtile --block-rows 512 --tol 1e-8 [--neumann] \\
+        [--sweep-order exact] [--fast-k] [--profile]
     python -m meshlessmultigridpoisson_torch.apps.cli ns --device cuda \\
         --sizes 170 600 2500 10000 --deg 6 --steps 2000
 
@@ -14,6 +15,10 @@ right-hand side on the device (with ``--neumann``: boundary data and the
 condensation pushdown) -> mixed-precision defect correction
 (mg/mixed.py) with an f64 outer residual and an f32 V-cycle-preconditioned
 BiCGStab inside.  One outer pass runs untimed first, then the timed solve.
+``--sweep-order exact`` runs the storage-order sweep on every level,
+``--fast-k`` stores the sweep's K in bf16; ``--profile`` adds a
+torch.profiler summary of one more solve and a per-level table of kernel
+times, throughputs and bounds (utils/profiling.py).
 
 ``ns`` (the reference package's ``ns --platform tpu``, the reference
 program's default run): the fractional-step Kovasznay flow, f64 host setup
@@ -56,10 +61,22 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda: CUDA kernels on the first card (no card: "
                         "error); cpu: the kernels' plain versions")
+    p.add_argument("--fast-k", action="store_true",
+                   help="store the one-shot sweep K tensor in bfloat16: "
+                        "~34%% fewer sweep HBM bytes; smoother fixed point "
+                        "unchanged, accuracy owned by the f64 defect outer "
+                        "loop")
+    p.add_argument("--sweep-order", default="colored", choices=["colored", "exact"],
+                   help="smoother sweep order: colored (block-colored GS on "
+                        "levels of 32+ blocks, same fixed point) or exact "
+                        "(storage order on every level, the order of the "
+                        "plain f64 sweep)")
     p.add_argument("--profile", action="store_true",
                    help="after the timed solve, run it once more under "
                         "torch.profiler and attach per-kernel device time "
-                        "and the device busy share to the record")
+                        "and the device busy share to the record, and a "
+                        "per-level table (sweep/matvec ms, nnz/s, modelled "
+                        "GB/s, bounds) and the solve's effective nnz/s")
     p.add_argument("--out", default=None, help="write the JSON SolveRecord here")
 
     pn = sub.add_parser("ns", help="fractional-step Navier-Stokes (Kovasznay)")
@@ -139,10 +156,12 @@ def _device_profile(solve, dev) -> dict:
                         for n, (c, ms) in top]}
 
 
-def run_solve(argv=None):
+def run_solve(argv=None, problem=None):
     """Parse ``solve`` arguments and run it; returns (record, problem, x64,
     x_lag64): the f64 solution in the fine level's permuted padded rows and
-    the Lagrange unknown (0 on Dirichlet problems)."""
+    the Lagrange unknown (0 on Dirichlet problems).  ``problem``: a host
+    problem returned by an earlier call with the same geometry arguments,
+    repacked instead of built again."""
     import torch
 
     from meshlessmultigridpoisson_torch.mg import mixed
@@ -163,14 +182,16 @@ def run_solve(argv=None):
     log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
 
     with Timer() as t_setup:
-        prob = make_poisson_problem(
+        prob = problem or make_poisson_problem(
             args.geom, sizes=list(args.sizes), poly_deg=args.deg, k1=args.k,
             neumann=args.neumann, seed=args.seed, ordering=args.ordering,
             block_rows=args.block_rows, device=dev,
         )
-        ghier = gpu_hierarchy(prob.hierarchy, dev)
+        ghier = gpu_hierarchy(prob.hierarchy, dev, sweep_order=args.sweep_order,
+                              k_dtype=torch.bfloat16 if args.fast_k else None)
         op64 = gpu_level_from_operator(prob.hierarchy.levels[-1], dev,
-                                       dtype=torch.float64, sweep=False)
+                                       dtype=torch.float64, sweep=False,
+                                       sweep_order=args.sweep_order)
         # the solve's right-hand side, its pushdown on the device's f64 tables
         b = fine_rhs(op64, prob.source, prob.neumann)
         bl = prob.state0.b_lag[-1].to(dev)
@@ -183,10 +204,12 @@ def run_solve(argv=None):
         name=f"poisson-{args.geom}-{dev.type}",
         config=dict(sizes=[c.n for c in prob.clouds], deg=args.deg, k=args.k,
                     neumann=args.neumann, solver="mixed-defect", tol=args.tol,
-                    platform=dev.type, ordering=args.ordering,
+                    platform=dev.type, fast_k=args.fast_k,
+                    sweep_order=args.sweep_order, ordering=args.ordering,
                     block_rows=args.block_rows),
     )
     rec.extra["level_kernels"] = [lv.kernel_kind for lv in ghier.levels]
+    rec.extra["level_k_dtypes"] = [str(lv.sweep.kT.dtype) for lv in ghier.levels]
     log(f"level kernels: {rec.extra['level_kernels']}")
     hd = mixed.defect_hierarchy(ghier)
     x0 = torch.zeros(op64.n_pad, dtype=torch.float64, device=dev)
@@ -216,6 +239,16 @@ def run_solve(argv=None):
         rec.extra["profile"] = _device_profile(
             lambda: mixed.solve_mixed_stepped(op64, hd, x0, xl0, b, bl,
                                               tol=args.tol), dev)
+        if dev.type == "cuda":
+            from meshlessmultigridpoisson_torch.utils.profiling import (
+                attach_throughput,
+                profile_hierarchy,
+            )
+
+            rec.extra["per_level"] = profile_hierarchy(ghier)
+            attach_throughput(rec, ghier)
+        else:
+            rec.extra["per_level"] = "not measured (no CUDA device)"
     if args.out:
         rec.save(args.out)
     return rec, prob, x, xl

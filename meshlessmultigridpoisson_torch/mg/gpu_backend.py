@@ -9,10 +9,16 @@ the kernels' layouts on ``device``:
   (``ops.gpu_kernels.DeviceEll``), for ``ell_spmv``;
 * the one-shot block GS tables for ``block_oneshot_sweep``: per-block
   K = (D/omega + L)^-1 with omega * omega_scale and the smooth mask folded
-  in, and the block execution order — colored (one phase per color) on
-  levels with at least 32 blocks of 128 rows ("v8-colored", the reference's
-  ``prepare_colored_sweep`` threshold), storage order otherwise
-  ("v7-exact");
+  in (f32, f64, or bf16 under ``k_dtype``), and the block execution order.
+  ``sweep_order="colored"``: colored (one phase per color) on levels with
+  at least 32 blocks of 128 rows ("v8-colored", the reference's
+  ``prepare_colored_sweep`` threshold), storage order otherwise.
+  ``sweep_order="exact"``: storage order on every level, the matvec on the
+  ``spmv6`` role throughout (the reference keeps ``kell6`` there).  A
+  storage-order level is "v6-oneshot" (role ``sweep6``) where the
+  reference's union-scratch tables would need more than 32 slots
+  (``ops.gpu_kernels.union_slots``), "v7-exact" (``sweep7``) otherwise;
+  both launch the same single-CTA chain;
 * the Neumann boundary rows (``bound``) and the condensation rows
   (``cond``) as compact tables for ``compact_rows``, and the Lagrange
   rank-1 border (``lag_col``, ``lag_row``) as vectors.
@@ -42,6 +48,7 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     DeviceCompact,
     DeviceEll,
     block_oneshot_sweep,
+    UNION_MAX_SLOTS,
     block_patches,
     build_oneshot_K,
     color_blocks,
@@ -50,12 +57,14 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     device_compact,
     device_ell,
     ell_spmv,
+    union_slots,
 )
 from meshlessmultigridpoisson_torch.stencil.operators import CompactRows, LevelOperator
 
 # below this many 128-row blocks the colored sweep loses to the storage-order
 # chain (reference ops/kernels8.py prepare_colored_sweep, min_blocks=32)
 MIN_COLORED_BLOCKS = 32
+SWEEP_ORDERS = ("colored", "exact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +98,9 @@ class GpuLevel:
         """Which sweep family this level runs (recorded in SolveRecords)."""
         if self.sweep is None:
             return "matvec-only"
-        return "v7-exact" if self.sweep.serial else "v8-colored"
+        if not self.sweep.serial:
+            return "v8-colored"
+        return "v6-oneshot" if self.sweep.role == "sweep6" else "v7-exact"
 
     def to_padded(self, v_logical: torch.Tensor) -> torch.Tensor:
         out = v_logical.new_zeros(self.n_pad)
@@ -127,17 +138,26 @@ def check_resolve_in_place(bound: CompactRows) -> None:
 
 
 def gpu_level_from_operator(
-    op: LevelOperator, device, dtype=torch.float32, sweep: bool = True
+    op: LevelOperator, device, dtype=torch.float32, sweep: bool = True,
+    sweep_order: str = "colored", k_dtype=None,
 ) -> GpuLevel:
     """Repack a host LevelOperator for the kernels (``sweep=False``: matvec
-    tables only, as for the f64 outer residual operator).  Raises on a
-    layout the kernels cannot take."""
+    tables only, as for the f64 outer residual operator).  ``k_dtype``
+    stores the sweep's K in another dtype (``torch.bfloat16`` with f32
+    vectors: ``--fast-k``).  Raises on a layout the kernels cannot take."""
+    if sweep_order not in SWEEP_ORDERS:
+        raise ValueError(f"sweep_order {sweep_order!r} not in {SWEEP_ORDERS}")
+    k_dtype = dtype if k_dtype is None else k_dtype
+    if k_dtype not in (dtype, torch.bfloat16) or (
+            k_dtype == torch.bfloat16 and dtype != torch.float32):
+        raise ValueError(f"K in {k_dtype} with {dtype} vectors: the sweep takes "
+                         "K in the vectors' dtype or bf16 K with f32")
     if op.n_pad % LANES:
         raise ValueError(f"n_pad={op.n_pad} is not a multiple of {LANES}")
     check_resolve_in_place(op.bound)
     device = torch.device(device)
     nb = op.n_pad // LANES
-    colored = nb >= MIN_COLORED_BLOCKS
+    colored = sweep_order == "colored" and nb >= MIN_COLORED_BLOCKS
     A = device_ell(op.A, dtype, device, role="spmv8" if colored else "spmv6")
 
     def f(v):
@@ -148,19 +168,21 @@ def gpu_level_from_operator(
         kT = build_oneshot_K(
             op.A, op.omega * op.omega_scale.numpy(), op.smooth_mask.numpy(),
             class_size=op.class_size)
+        pids = block_patches(global_cols(op.A).numpy(), nb)
         if colored:
-            colors = color_blocks(block_patches(global_cols(op.A).numpy(), nb), nb)
-            order, ptr = colored_order(colors)
+            order, ptr = colored_order(color_blocks(pids, nb))
+            role = "sweep8"
         else:
             order, ptr = np.arange(nb), (0, nb)
+            role = "sweep6" if union_slots(pids, nb) > UNION_MAX_SLOTS else "sweep7"
         sw = BlockSweep(
             A=A,
-            kT=torch.from_numpy(kT).to(device=device, dtype=dtype),
+            kT=torch.from_numpy(kT).to(device=device, dtype=k_dtype),
             lagc=f(op.lag_col),
             order=torch.from_numpy(order.astype(np.int32)).to(device),
             phase_ptr=ptr,
             serial=not colored,
-            role="sweep8" if colored else "sweep7",
+            role=role,
         )
     return GpuLevel(
         A=A,
@@ -182,9 +204,12 @@ def gpu_level_from_operator(
     )
 
 
-def gpu_hierarchy(hier: Hierarchy, device, dtype=torch.float32) -> Hierarchy:
+def gpu_hierarchy(hier: Hierarchy, device, dtype=torch.float32,
+                  sweep_order: str = "colored", k_dtype=None) -> Hierarchy:
     """Convert a host hierarchy to the GPU backend (transfers included)."""
-    levels = tuple(gpu_level_from_operator(op, device, dtype) for op in hier.levels)
+    levels = tuple(gpu_level_from_operator(op, device, dtype,
+                                           sweep_order=sweep_order, k_dtype=k_dtype)
+                   for op in hier.levels)
     restrict = tuple(device_ell(r, dtype, device, "spmv6") for r in hier.restrict)
     prolong = tuple(device_ell(p, dtype, device, "spmv6") for p in hier.prolong)
     return Hierarchy(levels=levels, restrict=restrict, prolong=prolong)

@@ -1,16 +1,19 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Three kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
-the five Pallas TPU kernels on the Poisson solve and fractional-step paths
-of the reference package:
+Four kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
+seven Pallas TPU kernels of the reference package:
 
 =================================  ===========================================
 CUDA kernel (role counter)         TPU kernel it replaces
 =================================  ===========================================
 ``ell_spmv`` (``spmv6``)           ops/kernels6.py ``spmv_tpu6``: coarsest
-                                   matvec, restrictions, prolongations
+                                   matvec, restrictions, prolongations (and
+                                   every matvec of ``--sweep-order exact``)
 ``ell_spmv`` (``spmv8``)           ops/kernels8.py ``spmv_tpu8``: fine-level
                                    matvec (and the f64 outer residual)
+``block_oneshot_sweep`` (sweep6)   ops/kernels6.py:515 ``sor_sweep_tpu6``:
+                                   storage-order block GS on levels whose
+                                   8-block union exceeds 32 x patches
 ``block_oneshot_sweep`` (sweep7)   ops/kernels6.py ``sor_sweep_tpu7``:
                                    storage-order block GS (coarsest level)
 ``block_oneshot_sweep`` (sweep8)   ops/kernels8.py ``sor_sweep_tpu8``:
@@ -22,7 +25,12 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``compact_rows`` (``ppe2``)        ops/kernels.py ``spmv_tpu2``: the compatible
                                    NS pressure matvec's Neumann rows
                                    (models/fracstep_tpu.py ``_mv32``)
+``stream_ceiling`` (``stream14``)  bench.py:118 ``stream_ceiling``: the
+                                   kernel bench's device-memory stream probe
 =================================  ===========================================
+
+The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
+all three sweep roles.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 with a plain C interface (``build()``), at first launch, into this package's
@@ -36,7 +44,8 @@ non-zero ``cudaGetLastError()``, and adds one to its role's entry in
 ``COUNTS`` per launch.  There is no fallback from a failed launch.
 
 Also here: the host-side prep ported from the reference package —
-``build_oneshot_K`` (ops/kernels4.py) and ``color_blocks`` (ops/kernels8.py).
+``build_oneshot_K`` (ops/kernels4.py), ``color_blocks`` (ops/kernels8.py)
+and ``union_slots`` (the kind rule of ops/kernels6.py's union tables).
 """
 
 from __future__ import annotations
@@ -59,13 +68,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmmp_kernels.so")
-SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu", "compact_rows.cu")
+SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu", "compact_rows.cu",
+           "stream_ceiling.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches per TPU-kernel role; reset with reset_counts()
-COUNTS = {"spmv6": 0, "spmv8": 0, "sweep7": 0, "sweep8": 0, "bound2": 0,
-          "push2": 0, "ppe2": 0}
+COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
+          "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -120,7 +130,8 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, i, i, p, p, p]
-            for name in ("mmp_block_sweep_f32", "mmp_block_sweep_f64"):
+            for name in ("mmp_block_sweep_f32", "mmp_block_sweep_f64",
+                         "mmp_block_sweep_f32_bf16k"):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
@@ -128,6 +139,8 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, i, i, p, p, i, p, p, p, i, p]
+            lib.mmp_stream_ceiling.restype = i
+            lib.mmp_stream_ceiling.argtypes = [p, p, i, i, i, p, p]
             _lib = lib
     return _lib
 
@@ -226,7 +239,8 @@ class BlockSweep:
     Phase p updates blocks ``order[phase_ptr[p]:phase_ptr[p+1]]``.  Colored
     (``serial=False``): one phase per color, blocks of a phase independent.
     Storage order (``serial=True``): one phase holding every block, walked
-    in order, each block seeing the previous block's result.
+    in order, each block seeing the previous block's result.  ``kT`` is in
+    the vectors' dtype, or bf16 with f32 vectors (the fast-K instance).
     """
 
     A: DeviceEll  # the level's square matrix
@@ -235,7 +249,7 @@ class BlockSweep:
     order: torch.Tensor  # [nb] int32 block ids in execution order
     phase_ptr: tuple
     serial: bool
-    role: str  # "sweep7" (storage order) or "sweep8" (colored)
+    role: str  # "sweep6"/"sweep7" (storage order) or "sweep8" (colored)
 
     @property
     def nphases(self) -> int:
@@ -245,12 +259,21 @@ class BlockSweep:
         return self.order[self.phase_ptr[p]:self.phase_ptr[p + 1]]
 
 
+# (vector dtype, K dtype) -> C entry suffix
+_SWEEP_SUFFIX = {(torch.float32, torch.float32): "f32",
+                 (torch.float64, torch.float64): "f64",
+                 (torch.float32, torch.bfloat16): "f32_bf16k"}
+
+
 def _oneshot_update(sw: BlockSweep, x, x_lag, b, ids: torch.Tensor) -> None:
     rows = (ids.long()[:, None] * LANES
             + torch.arange(LANES, device=ids.device)).reshape(-1)
     y = (sw.A.vals[rows] * x[sw.A.cols[rows].long()]).sum(dim=1)
     t = b[rows] - y - sw.lagc[rows] * x_lag
-    dx = torch.bmm(t.view(-1, 1, LANES), sw.kT[ids.long()]).reshape(-1)
+    k = sw.kT[ids.long()]
+    if k.dtype != x.dtype:  # bf16 K: t rounded to bf16, products exact in f32
+        t, k = t.to(k.dtype).to(x.dtype), k.to(x.dtype)
+    dx = torch.bmm(t.view(-1, 1, LANES), k).reshape(-1)
     x[rows] = x[rows] + dx
 
 
@@ -272,13 +295,14 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     """One full sweep (every phase) on ``x``, in place; returns ``x``."""
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         return block_oneshot_sweep_plain(sw, x, x_lag, b)
-    dev, dt = sw.kT.device, sw.kT.dtype
-    if dev.type != "cuda" or dt not in _SUFFIX:
-        raise ValueError(f"block_oneshot_sweep takes f32/f64 CUDA tensors, "
-                         f"got {dt} on {dev}")
+    dev, dt, kdt = sw.kT.device, sw.A.vals.dtype, sw.kT.dtype
+    if dev.type != "cuda" or (dt, kdt) not in _SWEEP_SUFFIX:
+        raise ValueError(f"block_oneshot_sweep takes f32/f64 CUDA tensors with K "
+                         f"in their dtype or bf16 K with f32, got {dt} with "
+                         f"{kdt} K on {dev}")
     n_pad = sw.A.nrows_pad
     nb = n_pad // LANES
-    _check("kT", sw.kT, dev, dt, (nb, LANES, LANES))
+    _check("kT", sw.kT, dev, kdt, (nb, LANES, LANES))
     _check("vals", sw.A.vals, dev, dt)
     _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
     _check("lagc", sw.lagc, dev, dt, (n_pad,))
@@ -287,7 +311,7 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     _check("b", b, dev, dt, (n_pad,))
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
     _check("x_lag", xl, dev, dt, ())
-    fn = getattr(_load(), f"mmp_block_sweep_{_SUFFIX[dt]}")
+    fn = getattr(_load(), f"mmp_block_sweep_{_SWEEP_SUFFIX[(dt, kdt)]}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     for p in range(sw.nphases):
         ids = sw.phase(p)
@@ -408,6 +432,50 @@ def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
+# stream_ceiling
+# ---------------------------------------------------------------------------
+
+STREAM_COLS = 128
+STREAM_OUT_ROWS = 8  # output rows per tile (the reference's (8, 128) block)
+
+
+def stream_ceiling_plain(v: torch.Tensor, c: torch.Tensor, tile_rows: int):
+    """Plain version of ``stream_ceiling`` (one pass): per tile the column
+    sums of ``v`` plus the int32 column sums of ``c`` as f32, each tile's
+    row of sums repeated in 8 output rows."""
+    nt = v.shape[0] // tile_rows
+    s = (v.view(nt, tile_rows, STREAM_COLS).sum(dim=1)
+         + c.view(nt, tile_rows, STREAM_COLS).sum(dim=1, dtype=torch.int32).to(v.dtype))
+    return s[:, None, :].expand(nt, STREAM_OUT_ROWS, STREAM_COLS).reshape(-1, STREAM_COLS)
+
+
+def stream_ceiling(v: torch.Tensor, c: torch.Tensor, tile_rows: int = 4096,
+                   reps: int = 1) -> torch.Tensor:
+    """Stream [rows, 128] f32 ``v`` and int32 ``c`` ``reps`` times in one
+    launch; returns the [rows / tile_rows * 8, 128] f32 tile sums."""
+    rows = v.shape[0]
+    if tile_rows <= 0 or rows % tile_rows or reps < 1:
+        raise ValueError(f"stream_ceiling: {rows} rows in tiles of {tile_rows}, "
+                         f"reps={reps}")
+    if v.device.type == "cpu" and c.device.type == "cpu":
+        return stream_ceiling_plain(v, c, tile_rows)
+    dev = v.device
+    if dev.type != "cuda":
+        raise ValueError(f"stream_ceiling takes CUDA tensors, got {dev}")
+    _check("v", v, dev, torch.float32, (rows, STREAM_COLS))
+    _check("c", c, dev, torch.int32, (rows, STREAM_COLS))
+    nt = rows // tile_rows
+    out = torch.empty(nt * STREAM_OUT_ROWS, STREAM_COLS, dtype=torch.float32,
+                      device=dev)
+    rc = _load().mmp_stream_ceiling(v.data_ptr(), c.data_ptr(), nt, tile_rows,
+                                    reps, out.data_ptr(),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, "stream_ceiling")
+    COUNTS["stream14"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # host prep (ported from the reference package's numpy code)
 # ---------------------------------------------------------------------------
 
@@ -475,6 +543,31 @@ def block_patches(gcols: np.ndarray, nb: int) -> np.ndarray:
         out[i, : u.size] = u
         out[i, u.size:] = u[0]
     return out
+
+
+UNION_MB = 8  # consecutive blocks per union group (kernels6.py MB)
+UNION_MAX_SLOTS = 32  # the v7 sweep's scratch bound (union_sweep_tables)
+
+
+def union_slots(pids: np.ndarray, nb: int) -> int:
+    """x-patch slots the reference's union-scratch (v7) sweep would need.
+
+    Per group of ``UNION_MB`` consecutive blocks: its own ``UNION_MB``
+    slots plus the distinct patches the group reads outside itself, rounded
+    up to 8; the maximum over groups (ops/kernels6.py union_sweep_tables,
+    which groups the block range rounded up to whole groups).  A
+    storage-order level is "v6-oneshot" when this exceeds
+    ``UNION_MAX_SLOTS``, else "v7-exact"; on the card both launch the same
+    single-CTA chain.
+    """
+    pids = np.asarray(pids).reshape(nb, -1)
+    nmb = -(-nb // UNION_MB)
+    max_others = 0
+    for g in range(nmb):
+        lo, hi = g * UNION_MB, (g + 1) * UNION_MB
+        u = np.unique(pids[lo:min(hi, nb)])
+        max_others = max(max_others, int(((u < lo) | (u >= hi)).sum()))
+    return UNION_MB + -(-max(max_others, 1) // 8) * 8
 
 
 def color_blocks(pids: np.ndarray, nb: int) -> np.ndarray:

@@ -12,7 +12,11 @@ k = 28, kd-tile ordered, non-symmetric values).  Tolerances, relative to
 max |plain output|: f32 1e-5 for the SpMV (another summation order over
 ~28 products), 1e-4 for a sweep (the 128-term K product on top); f64
 1e-12 / 1e-11 for the same reorderings in double.  ``compact_rows`` is a
-gather-sum with a two-operation epilogue: the SpMV's tolerances.
+gather-sum with a two-operation epilogue: the SpMV's tolerances.  The
+bf16-K sweep against its bf16 plain version: 1e-2 of max |dx| (both round
+t to bf16; a t element on the other side of a rounding boundary moves its
+column's contribution by one bf16 ulp, 2^-8).  ``stream_ceiling`` sums
+small integers: exact.
 """
 
 import numpy as np
@@ -102,6 +106,77 @@ def test_block_sweep_matches_plain(et, serial, dtype, tol):
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     moved = (out - x).abs()[: n_pad // 7]
     assert float(moved.max()) == 0.0  # zero K rows never move
+
+
+def _sweep(et, dtype, serial, role, k_dtype=None):
+    n_pad = et.nrows_pad
+    nb = n_pad // 128
+    omega = np.full(n_pad, 1.4)
+    omega[::5] = 1.0
+    smask = np.ones(n_pad)
+    smask[: n_pad // 7] = 0.0
+    kT = gk.build_oneshot_K(et, omega, smask)
+    if serial:
+        order, ptr = np.arange(nb), (0, nb)
+    else:
+        colors = gk.color_blocks(gk.block_patches(tell.global_cols(et).numpy(), nb), nb)
+        order, ptr = gk.colored_order(colors)
+    return gk.BlockSweep(
+        A=gk.device_ell(et, dtype, "cuda", "spmv6"),
+        kT=torch.from_numpy(kT).to("cuda", k_dtype or dtype),
+        lagc=torch.full((n_pad,), 0.01, dtype=dtype, device="cuda"),
+        order=torch.from_numpy(order.astype(np.int32)).cuda(), phase_ptr=ptr,
+        serial=serial, role=role)
+
+
+@pytest.mark.parametrize("role", ["sweep6", "sweep7"])
+def test_storage_sweep_roles_count_and_match_plain(et, role):
+    """Kernels 6 and 7 launch the same single-CTA chain under their own
+    counters."""
+    sw = _sweep(et, torch.float32, True, role)
+    x, b = _rand(et.nrows_pad, torch.float32, 7), _rand(et.nrows_pad, torch.float32, 8)
+    xl = torch.tensor(-0.2, dtype=torch.float32, device="cuda")
+    before = dict(gk.COUNTS)
+    out = gk.block_oneshot_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {role: 1}
+    ref = gk.block_oneshot_sweep_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("role,serial", [("sweep6", True), ("sweep7", True),
+                                         ("sweep8", False)])
+def test_block_sweep_bf16k_matches_plain(et, role, serial):
+    sw = _sweep(et, torch.float32, serial, role, k_dtype=torch.bfloat16)
+    x, b = _rand(et.nrows_pad, torch.float32, 9), _rand(et.nrows_pad, torch.float32, 10)
+    xl = torch.tensor(0.3, dtype=torch.float32, device="cuda")
+    out = gk.block_oneshot_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    ref = gk.block_oneshot_sweep_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= 1e-2 * float((ref - x).abs().max())
+    f32 = _sweep(et, torch.float32, serial, role)  # bf16 K is close to f32 K
+    ref32 = gk.block_oneshot_sweep_plain(f32, x.clone(), xl, b)
+    assert float((out - ref32).abs().max()) <= 5e-2 * float((ref32 - x).abs().max())
+
+
+def test_bf16k_sweep_refuses_f64_vectors(et):
+    sw = _sweep(et, torch.float64, True, "sweep7", k_dtype=torch.bfloat16)
+    x = _rand(et.nrows_pad, torch.float64, 11)
+    with pytest.raises(ValueError, match="bf16"):
+        gk.block_oneshot_sweep(sw, x, torch.zeros((), dtype=torch.float64, device="cuda"), x)
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+def test_stream_ceiling_matches_plain(reps):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randint(0, 4, (4 * 4096, 128), generator=g, device="cuda").float()
+    c = torch.randint(-3, 4, (4 * 4096, 128), generator=g, device="cuda", dtype=torch.int32)
+    before = gk.COUNTS["stream14"]
+    out = gk.stream_ceiling(v, c, 4096, reps)
+    torch.cuda.synchronize()
+    assert gk.COUNTS["stream14"] == before + 1
+    assert out.shape == (32, 128)
+    assert torch.equal(out, gk.stream_ceiling_plain(v, c, 4096))
 
 
 @pytest.fixture(scope="module")
@@ -217,3 +292,28 @@ def test_cli_ns_on_card_runs_every_kernel():
     assert launches["push2"] == 0
     assert all(math.isfinite(h) for h in rec.residual_history)
     assert all(r < 1e-10 for r in rec.extra["ppe_residual"])
+
+
+def test_cli_solve_exact_and_fast_k_on_card():
+    """``--sweep-order exact`` runs storage order on every level (kernel 6
+    on the fine level of this ladder) with ``spmv6`` matvecs; ``--fast-k``
+    stores every K in bf16; both reach the tolerance; ``--profile`` adds the
+    per-level table with bounds."""
+    from meshlessmultigridpoisson_torch.apps import cli
+
+    argv = ["solve", "--device", "cuda", "--geom", "square_with_circle",
+            "--sizes", "600", "2500", "5000", "--deg", "4", "--ordering", "kdtile",
+            "--block-rows", "512", "--tol", "1e-10"]
+    rec, prob, *_ = cli.run_solve(argv + ["--sweep-order", "exact", "--profile"])
+    assert rec.final_residual < 1e-10
+    assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact", "v6-oneshot"]
+    launches = rec.extra["launches"]
+    assert launches["sweep6"] > 0 and launches["sweep7"] > 0 and launches["spmv6"] > 0
+    assert launches["sweep8"] == 0 and launches["spmv8"] == 0
+    rows = rec.extra["per_level"]
+    assert [r["kernel"] for r in rows] == rec.extra["level_kernels"]
+    assert all(0 < r["sweep_bound_ms"] <= r["sweep_ms"] for r in rows)
+    rec, *_ = cli.run_solve(argv + ["--fast-k"], problem=prob)
+    assert rec.final_residual < 1e-10
+    assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact", "v8-colored"]
+    assert rec.extra["level_k_dtypes"] == ["torch.bfloat16"] * 3
