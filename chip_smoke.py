@@ -19,8 +19,12 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    (``sweep6``) and on the coarsest level in storage order (``sweep7``);
    the bf16-K instance of all three against the bf16 plain version;
    ``stream_ceiling`` at the bench's shape against its plain reduction;
+   ``class_sor_sweep`` (f32 and f64, the v2-fallback smoother) and
+   ``ell_spmv`` in its ``spmv2`` role on the Dirichlet fine level;
    on the Neumann hierarchy ``compact_rows`` (f32 and f64) on the fine
-   level's boundary table (re-solve) and condensation table (pushdown).
+   level's boundary table (re-solve) and condensation table (pushdown),
+   and ``class_sor_sweep`` (f32, f64) on the fine level (frozen rows,
+   Lagrange column, x_lag 0.3).
    Prints each comparison's relative error, the kernel's and the plain
    version's time, the kernel's bound (bytes over 3.35 TB/s or operations
    over the arithmetic peak, utils/profiling.py) and, for the SpMV and
@@ -29,16 +33,20 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
 3. run the port's ``solve`` entry point in-process (one untimed outer pass,
    then the timed solve; launch counters set to 0 before each run and read
    after it), print each SolveRecord, and check: Dirichlet, then on the
-   same host problem (repacked, not rebuilt) ``--sweep-order exact`` and
-   ``--fast-k``, then Neumann.  Level kernels ``[v7-exact,
-   v8-colored x3]`` (exact: ``[v7-exact, v6-oneshot x3]``; fast-k: every K
-   in bf16); every kernel role of the path launched (exact: ``spmv6``,
-   ``sweep7``, ``sweep6``, with ``spmv8`` and ``sweep8`` at 0; Neumann adds
-   both ``compact_rows`` roles); relative L1 residual < 1e-8, re-checked
+   same host problem (repacked, not rebuilt) ``--sweep-order exact``,
+   ``--fast-k`` and the v2-fallback solve (``run_solve(...,
+   use_v6=False)``, the reference's ``tpu_hierarchy(use_v6=False)``), then
+   Neumann.  Level kernels ``[v7-exact, v8-colored x3]`` (exact:
+   ``[v7-exact, v6-oneshot x3]``; fast-k: every K in bf16; v2:
+   ``[v2-fallback x4]``, no K); every kernel role of the path launched
+   (exact: ``spmv6``, ``sweep7``, ``sweep6``, with ``spmv8`` and ``sweep8``
+   at 0; v2: ``sweep2``, ``spmv2``, ``spmv6``, with ``sweep6/7/8`` and
+   ``spmv8`` at 0; Neumann adds both ``compact_rows`` roles); relative L1
+   residual < 1e-8, re-checked
    from the returned (x, x_lag) with the plain f64 SpMV, border row
-   included; L1 error < 1e-6.  After the exact path's counts are read, it
-   runs once more with ``--profile`` and its per-level table is printed,
-   each time at or above its bound;
+   included; L1 error < 1e-6.  After the exact and v2 paths' counts are
+   read, each runs once more with ``--profile`` and its per-level table is
+   printed, each time at or above its bound;
 4. the fractional-step Navier-Stokes path (``cli ns``, Kovasznay, the
    reference program's default run at its default width and depth: sizes
    170/600/2500/10000, deg 6): on its problem, ``compact_rows`` role
@@ -57,7 +65,13 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    kind against their plain versions before it times them): prints its
    JSON line; checks the SpMV spot check, ``stream14``, ``spmv6``,
    ``sweep6`` and ``sweep8`` launched, and every ``pct_of_bound`` <= 105;
-6. print a JSON line of per-kernel results, the total time, then, as the
+6. the kernel-generation probe (``meshlessmultigridpoisson_torch.probes.
+   ktime``) in-process on its real 1,048,576-row pattern with 5 iterations
+   (counts set to 0 before, read after; the probe holds every kernel
+   against its plain version before timing it): ``spmv2`` and ``sweep2``
+   at 128- and 256-row blocks, ``spmv4``, ``sweep4`` and ``sweep5``, each
+   launched, each at or above its bound;
+7. print a JSON line of per-kernel results, the total time, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package next to it, it exits with a
@@ -103,9 +117,24 @@ ROLES = {
              "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
     "stream14": ("stream_ceiling", "meshlessmultigridpoisson_torch/csrc/stream_ceiling.cu",
                  "bench.py:118"),
+    "sweep2": ("class_sor_sweep", "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
+               "meshlessmultigridpoisson_tpu/ops/kernels.py:586"),
+    "sweep4": ("class_sor_sweep", "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
+               "meshlessmultigridpoisson_tpu/ops/kernels4.py:464"),
+    "spmv2": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+              "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
+    "spmv4": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+              "meshlessmultigridpoisson_tpu/ops/kernels4.py:383"),
+    "sweep5": ("block_oneshot_sweep",
+               "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+               "meshlessmultigridpoisson_tpu/ops/kernels4.py:620"),
 }
 DIRICHLET_ROLES = ("spmv6", "spmv8", "sweep7", "sweep8")
 EXACT_ROLES = ("spmv6", "sweep6", "sweep7")
+V2_KERNELS = ["v2-fallback"] * 4
+V2_ROLES = ("spmv2", "spmv6", "sweep2")
+KTIME_N, KTIME_ITERS = 1_048_576, 5
+KTIME_ROLES = ("spmv2", "sweep2", "spmv4", "sweep4", "sweep5")
 BENCH_ROLES = ("spmv6", "sweep6", "sweep8", "stream14")
 NEUMANN_ROLES = DIRICHLET_ROLES + ("bound2", "push2")
 # the NS main path: the reference program's default run at its own width
@@ -220,6 +249,7 @@ def main(argv=None) -> int:
         )
         from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
         from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+        from meshlessmultigridpoisson_torch.probes import ktime
         from meshlessmultigridpoisson_torch.utils import profiling as pf
     except ImportError as e:
         return fail(f"the port package is not next to this script ({e})")
@@ -317,6 +347,31 @@ def main(argv=None) -> int:
                f"({sw.nphases} launches)", ("sweep", dt), err, scale, ms, pms,
                pf.sweep_bytes(sw), pf.sweep_flops(sw), dtype)
 
+    def check_class_sweep(label, sw, x_lag):
+        """Kernel vs plain, one launch counted, frozen rows untouched."""
+        dtype = sw.A.vals.dtype
+        n = sw.A.nrows_pad
+        x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        xl = torch.tensor(x_lag, dtype=dtype, device=dev)
+        before = gk.COUNTS[sw.role]
+        xk = gk.class_sor_sweep(sw, x0.clone(), xl, b)
+        torch.cuda.synchronize()
+        if gk.COUNTS[sw.role] != before + 1:
+            raise AssertionError(f"class_sor_sweep {label}: no launch counted")
+        xp = gk.class_sor_sweep_plain(sw, x0.clone(), xl, b)
+        frozen = sw.mask == 0
+        if not torch.equal(xk[frozen], x0[frozen]):
+            raise AssertionError(f"class_sor_sweep {label}: a frozen row moved")
+        xs = x0.clone()
+        ms = ms_of(lambda v: gk.class_sor_sweep(sw, v, xl, b), xs, 5)
+        pms = ms_of(lambda v: gk.class_sor_sweep_plain(sw, v, xl, b), xs, 1)
+        dt = dname(dtype)
+        record(sw.role, f"class_sor_sweep {dt} {label} ({n // sw.class_size} tiles, "
+               f"x_lag {x_lag})", ("sweep", dt), float((xk - xp).abs().max()),
+               float(xp.abs().max()), ms, pms, pf.sweep_bytes(sw), pf.sweep_flops(sw),
+               dtype)
+
     def storage_order(sw, role):
         nb = sw.A.nrows_pad // gk.LANES
         return dataclasses.replace(
@@ -345,7 +400,12 @@ def main(argv=None) -> int:
     check_sweep("fine, colored order", bf16k(fine32.sweep))
     check_sweep("fine, storage order", bf16k(storage_order(fine32.sweep, "sweep6")))
     check_sweep("coarsest, storage order", bf16k(coarse32.sweep))
-    del g32, coarse64, fine64, hier, prob
+    for dt in (torch.float32, torch.float64):  # the v2-fallback fine level
+        v2 = gpu_level_from_operator(hier.levels[-1], dev, dt, use_v6=False)
+        if dt == torch.float32:
+            check_spmv(v2.A.role, "fine matvec (v2 level)", v2.A)
+        check_class_sweep("fine, Dirichlet", v2.sweep, 0.0)
+    del g32, coarse64, fine64, hier, prob, v2
     torch.cuda.empty_cache()
 
     # the bench's stream probe at its own shape: sums of small integers
@@ -403,6 +463,8 @@ def main(argv=None) -> int:
                       gk.device_compact(fine.bound, dt, dev, "bound2"))
         check_compact("fine condensation pushdown",
                       gk.device_compact(fine.cond, dt, dev, "push2"))
+        check_class_sweep("fine, Neumann", gpu_level_from_operator(
+            fine, dev, dt, use_v6=False).sweep, 0.3)
     del prob, fine
     torch.cuda.empty_cache()
 
@@ -413,22 +475,25 @@ def main(argv=None) -> int:
     full = args.sizes == SLICE_SIZES
     launches = {}
     # (path, extra flags, roles that must launch, roles that must not,
-    #  expected level kinds, reuse the previous path's host problem)
-    paths = (("dirichlet", [], DIRICHLET_ROLES, (), EXPECT_KERNELS, False),
+    #  expected level kinds, reuse the previous path's host problem, use_v6)
+    paths = (("dirichlet", [], DIRICHLET_ROLES, (), EXPECT_KERNELS, False, None),
              ("exact", ["--sweep-order", "exact"], EXACT_ROLES,
-              ("spmv8", "sweep8"), EXACT_KERNELS, True),
-             ("fast-k", ["--fast-k"], DIRICHLET_ROLES, (), EXPECT_KERNELS, True),
-             ("neumann", ["--neumann"], NEUMANN_ROLES, (), EXPECT_KERNELS, False))
+              ("spmv8", "sweep8"), EXACT_KERNELS, True, None),
+             ("fast-k", ["--fast-k"], DIRICHLET_ROLES, (), EXPECT_KERNELS, True, None),
+             ("v2", [], V2_ROLES, ("sweep6", "sweep7", "sweep8", "spmv8"), V2_KERNELS,
+              True, False),
+             ("neumann", ["--neumann"], NEUMANN_ROLES, (), EXPECT_KERNELS, False, None))
     prob = None
-    for path, extra, roles, idle_roles, expect, reuse in paths:
+    for path, extra, roles, idle_roles, expect, reuse, use_v6 in paths:
         argv = argv_solve + extra
         print(f"main path ({path}): python -m meshlessmultigridpoisson_torch.apps.cli "
-              + " ".join(argv) + (" (host problem reused)" if reuse else ""), flush=True)
+              + " ".join(argv) + (" (host problem reused)" if reuse else "")
+              + ("" if use_v6 is None else f", run_solve(use_v6={use_v6})"), flush=True)
         if not reuse:
             prob = None
             torch.cuda.empty_cache()
         gk.reset_counts()
-        rec, prob, x, xl = cli.run_solve(argv, problem=prob)
+        rec, prob, x, xl = cli.run_solve(argv, problem=prob, use_v6=use_v6)
         torch.cuda.synchronize()
         launches[path] = dict(gk.COUNTS)
         print(rec.to_json(), flush=True)
@@ -444,7 +509,7 @@ def main(argv=None) -> int:
         busy = [r for r in idle_roles if launches[path][r] != 0]
         if busy:
             return fail(f"{path}: roles off this path launched: {busy}")
-        want_k = "torch.bfloat16" if path == "fast-k" else "torch.float32"
+        want_k = {"fast-k": "torch.bfloat16", "v2": None}.get(path, "torch.float32")
         if any(d != want_k for d in rec.extra["level_k_dtypes"]):
             return fail(f"{path}: K dtypes {rec.extra['level_k_dtypes']}, want {want_k}")
         if not rec.final_residual < 1e-8:
@@ -459,8 +524,8 @@ def main(argv=None) -> int:
             return fail(f"{path}: re-checked residual {recheck:.3e} >= 1e-8")
         if not rec.l1_error < 1e-6:
             return fail(f"{path}: l1_error {rec.l1_error:.3e} >= 1e-6")
-        if path == "exact":  # the per-level profile, after the counts are read
-            rec, *_ = cli.run_solve(argv + ["--profile"], problem=prob)
+        if path in ("exact", "v2"):  # the per-level profile, after the counts are read
+            rec, *_ = cli.run_solve(argv + ["--profile"], problem=prob, use_v6=use_v6)
             print(f"{path}: per-level profile, cli solve {' '.join(extra)} "
                   f"--profile ({card}):", flush=True)
             for row in rec.extra["per_level"]:
@@ -564,7 +629,29 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- 6. results ----------------------------------------------------------
+    # ---- 6. the kernel-generation probe --------------------------------------
+    print("main path (ktime): python -m meshlessmultigridpoisson_torch.probes.ktime "
+          f"{KTIME_N} {KTIME_ITERS}", flush=True)
+    gk.reset_counts()
+    res = ktime.run(KTIME_N, KTIME_ITERS)
+    torch.cuda.synchronize()
+    launches["ktime"] = dict(gk.COUNTS)
+    print(json.dumps(res), flush=True)
+    print(f"launches during the ktime probe: {launches['ktime']}", flush=True)
+    idle = [r for r in KTIME_ROLES if launches["ktime"][r] == 0]
+    if idle:
+        return fail(f"ktime: kernel roles never launched: {idle}")
+    for label, r in res["kernels"].items():
+        if not r["pct_of_bound"] <= PCT_OF_BOUND_MAX:
+            return fail(f"ktime {label}: time below the bound ({r['pct_of_bound']:.1f}%)")
+        results[r["role"]].append(dict(
+            label=f"ktime {label}, real pattern {res['n']} rows x {res['k']}",
+            **{k: r[k] for k in ("max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}))
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- 7. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
         by_path = {p: n[role] for p, n in launches.items()}

@@ -156,12 +156,15 @@ def _device_profile(solve, dev) -> dict:
                         for n, (c, ms) in top]}
 
 
-def run_solve(argv=None, problem=None):
+def run_solve(argv=None, problem=None, use_v6=None):
     """Parse ``solve`` arguments and run it; returns (record, problem, x64,
     x_lag64): the f64 solution in the fine level's permuted padded rows and
     the Lagrange unknown (0 on Dirichlet problems).  ``problem``: a host
     problem returned by an earlier call with the same geometry arguments,
-    repacked instead of built again."""
+    repacked instead of built again.  ``use_v6``: the repack's knob
+    (``mg.gpu_backend.runs_v2``, the reference's ``tpu_hierarchy(use_v6=)``):
+    False runs every level on the v2-fallback kernels (class SOR, no K);
+    the reference CLI has no flag for it."""
     import torch
 
     from meshlessmultigridpoisson_torch.mg import mixed
@@ -188,10 +191,12 @@ def run_solve(argv=None, problem=None):
             block_rows=args.block_rows, device=dev,
         )
         ghier = gpu_hierarchy(prob.hierarchy, dev, sweep_order=args.sweep_order,
-                              k_dtype=torch.bfloat16 if args.fast_k else None)
+                              k_dtype=torch.bfloat16 if args.fast_k else None,
+                              use_v6=use_v6)
+        # the f64 outer operator takes the fine level's matvec role
         op64 = gpu_level_from_operator(prob.hierarchy.levels[-1], dev,
                                        dtype=torch.float64, sweep=False,
-                                       sweep_order=args.sweep_order)
+                                       sweep_order=args.sweep_order, use_v6=use_v6)
         # the solve's right-hand side, its pushdown on the device's f64 tables
         b = fine_rhs(op64, prob.source, prob.neumann)
         bl = prob.state0.b_lag[-1].to(dev)
@@ -209,7 +214,9 @@ def run_solve(argv=None, problem=None):
                     block_rows=args.block_rows),
     )
     rec.extra["level_kernels"] = [lv.kernel_kind for lv in ghier.levels]
-    rec.extra["level_k_dtypes"] = [str(lv.sweep.kT.dtype) for lv in ghier.levels]
+    rec.extra["level_k_dtypes"] = [  # None: a v2-fallback level holds no K
+        str(lv.sweep.kT.dtype) if isinstance(lv.sweep, gpu_kernels.BlockSweep) else None
+        for lv in ghier.levels]
     log(f"level kernels: {rec.extra['level_kernels']}")
     hd = mixed.defect_hierarchy(ghier)
     x0 = torch.zeros(op64.n_pad, dtype=torch.float64, device=dev)

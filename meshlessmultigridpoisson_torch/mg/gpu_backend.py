@@ -19,6 +19,11 @@ the kernels' layouts on ``device``:
   reference's union-scratch tables would need more than 32 slots
   (``ops.gpu_kernels.union_slots``), "v7-exact" (``sweep7``) otherwise;
   both launch the same single-CTA chain;
+* or, on a "v2-fallback" level (``use_v6=False``, or a level the
+  reference's v6 layout refuses: ``ops.gpu_kernels.v6_supported``), the
+  K-free class SOR tables for ``class_sor_sweep`` (``ClassSweep``: diag,
+  mask, per-row omega, Lagrange column; 512 B per row less than K in f32)
+  and the matvec on the ``spmv2`` role;
 * the Neumann boundary rows (``bound``) and the condensation rows
   (``cond``) as compact tables for ``compact_rows``, and the Lagrange
   rank-1 border (``lag_col``, ``lag_row``) as vectors.
@@ -36,6 +41,7 @@ sweep loop adds no host sync.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -45,12 +51,15 @@ from meshlessmultigridpoisson_torch.ops.ell import global_cols
 from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     LANES,
     BlockSweep,
+    ClassSweep,
     DeviceCompact,
     DeviceEll,
     block_oneshot_sweep,
     UNION_MAX_SLOTS,
     block_patches,
     build_oneshot_K,
+    class_sor_sweep,
+    class_sweep,
     color_blocks,
     colored_order,
     compact_rows,
@@ -58,6 +67,7 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     device_ell,
     ell_spmv,
     union_slots,
+    v6_supported,
 )
 from meshlessmultigridpoisson_torch.stencil.operators import CompactRows, LevelOperator
 
@@ -73,7 +83,9 @@ class GpuLevel:
     the reference's ``TpuLevel`` that the solve path reads)."""
 
     A: DeviceEll
-    sweep: BlockSweep | None  # None: matvec-only (the f64 outer operator)
+    # BlockSweep (v6/v7/v8), ClassSweep (v2-fallback), None: matvec-only
+    # (the f64 outer operator)
+    sweep: BlockSweep | ClassSweep | None
     bound: DeviceCompact  # Neumann boundary rows ("bound2"; empty if none)
     cond: DeviceCompact  # condensation rows C = S D^-1 ("push2")
     lag_col: torch.Tensor  # [n_pad] Lagrange border column
@@ -98,6 +110,8 @@ class GpuLevel:
         """Which sweep family this level runs (recorded in SolveRecords)."""
         if self.sweep is None:
             return "matvec-only"
+        if isinstance(self.sweep, ClassSweep):
+            return "v2-fallback"
         if not self.sweep.serial:
             return "v8-colored"
         return "v6-oneshot" if self.sweep.role == "sweep6" else "v7-exact"
@@ -137,14 +151,35 @@ def check_resolve_in_place(bound: CompactRows) -> None:
             "stencils that exclude other boundary points")
 
 
+def runs_v2(op: LevelOperator, use_v6: bool | None = None) -> bool:
+    """Whether the level runs the v2-fallback kernels (tpu_backend's rule).
+
+    ``use_v6`` None: v6 (the one-shot sweeps) wherever the class size is 8
+    and the reference's v6 layout takes the operator; False: v2 always.
+    Where the reference's v6 prep would raise, warn as it does.
+    """
+    if use_v6 is None:
+        use_v6 = op.class_size == 8
+    if not (use_v6 and op.class_size == 8):
+        return True
+    if not v6_supported(op.A):
+        warnings.warn(
+            f"GPU level n={op.n}: the v6 layout refuses this operator (more than "
+            "256 x patches in a 128-row block, or blocks not of whole 128 rows); "
+            "falling back to the SLOW v2 class sweep", stacklevel=3)
+        return True
+    return False
+
+
 def gpu_level_from_operator(
     op: LevelOperator, device, dtype=torch.float32, sweep: bool = True,
-    sweep_order: str = "colored", k_dtype=None,
+    sweep_order: str = "colored", k_dtype=None, use_v6: bool | None = None,
 ) -> GpuLevel:
     """Repack a host LevelOperator for the kernels (``sweep=False``: matvec
     tables only, as for the f64 outer residual operator).  ``k_dtype``
     stores the sweep's K in another dtype (``torch.bfloat16`` with f32
-    vectors: ``--fast-k``).  Raises on a layout the kernels cannot take."""
+    vectors: ``--fast-k``).  ``use_v6``: see ``runs_v2``; a v2 level holds
+    no K.  Raises on a layout the kernels cannot take."""
     if sweep_order not in SWEEP_ORDERS:
         raise ValueError(f"sweep_order {sweep_order!r} not in {SWEEP_ORDERS}")
     k_dtype = dtype if k_dtype is None else k_dtype
@@ -157,14 +192,19 @@ def gpu_level_from_operator(
     check_resolve_in_place(op.bound)
     device = torch.device(device)
     nb = op.n_pad // LANES
-    colored = sweep_order == "colored" and nb >= MIN_COLORED_BLOCKS
-    A = device_ell(op.A, dtype, device, role="spmv8" if colored else "spmv6")
+    v2 = runs_v2(op, use_v6)
+    colored = not v2 and sweep_order == "colored" and nb >= MIN_COLORED_BLOCKS
+    role = "spmv2" if v2 else ("spmv8" if colored else "spmv6")
+    A = device_ell(op.A, dtype, device, role=role)
 
     def f(v):
         return v.to(device=device, dtype=dtype)
 
     sw = None
-    if sweep:
+    if sweep and v2:
+        sw = class_sweep(A, op.A.diag, op.smooth_mask, op.omega * op.omega_scale,
+                         op.lag_col, class_size=op.class_size, role="sweep2")
+    elif sweep:
         kT = build_oneshot_K(
             op.A, op.omega * op.omega_scale.numpy(), op.smooth_mask.numpy(),
             class_size=op.class_size)
@@ -205,14 +245,20 @@ def gpu_level_from_operator(
 
 
 def gpu_hierarchy(hier: Hierarchy, device, dtype=torch.float32,
-                  sweep_order: str = "colored", k_dtype=None) -> Hierarchy:
-    """Convert a host hierarchy to the GPU backend (transfers included)."""
-    levels = tuple(gpu_level_from_operator(op, device, dtype,
-                                           sweep_order=sweep_order, k_dtype=k_dtype)
+                  sweep_order: str = "colored", k_dtype=None,
+                  use_v6: bool | None = None) -> Hierarchy:
+    """Convert a host hierarchy to the GPU backend (transfers included).
+    Transfers keep ``spmv6`` whatever ``use_v6`` says, and take ``spmv2``
+    where the v6 layout refuses them (tpu_backend.tpu_hierarchy)."""
+    levels = tuple(gpu_level_from_operator(op, device, dtype, sweep_order=sweep_order,
+                                           k_dtype=k_dtype, use_v6=use_v6)
                    for op in hier.levels)
-    restrict = tuple(device_ell(r, dtype, device, "spmv6") for r in hier.restrict)
-    prolong = tuple(device_ell(p, dtype, device, "spmv6") for p in hier.prolong)
-    return Hierarchy(levels=levels, restrict=restrict, prolong=prolong)
+
+    def transfer(ell):
+        return device_ell(ell, dtype, device, "spmv6" if v6_supported(ell) else "spmv2")
+
+    return Hierarchy(levels=levels, restrict=tuple(map(transfer, hier.restrict)),
+                     prolong=tuple(map(transfer, hier.prolong)))
 
 
 # ---------------------------------------------------------------------------
@@ -247,17 +293,19 @@ def push_inhomog_to_rhs(op: GpuLevel, b):
 
 
 def smooth(op: GpuLevel, x, x_lag, b, b_lag, iters=None):
-    """``iters`` sweeps, each: block GS -> Lagrange-row relax -> Neumann
-    row re-solve (reference tpu_backend.smooth).  The sweep and re-solve
-    kernels update in place, so ``x`` is copied once up front."""
+    """``iters`` sweeps, each: block GS (class SOR on a v2-fallback level)
+    -> Lagrange-row relax -> Neumann row re-solve (reference
+    tpu_backend.smooth).  The sweep and re-solve kernels update in place,
+    so ``x`` is copied once up front."""
     iters = op.iters if iters is None else iters
+    sweep = class_sor_sweep if isinstance(op.sweep, ClassSweep) else block_oneshot_sweep
     w = op.omega
     x = x.clone()
     x_lag = torch.as_tensor(x_lag, dtype=x.dtype, device=x.device)
     b_lag = torch.as_tensor(b_lag, dtype=x.dtype, device=x.device)
     b = b.contiguous()
     for _ in range(iters):
-        block_oneshot_sweep(op.sweep, x, x_lag, b)
+        sweep(op.sweep, x, x_lag, b)
         if op.has_lagrange:
             # border row: A_NN = 1 (grid.cpp:573)
             x_lag = (1.0 - w) * x_lag + w * (b_lag - _lag_dot(op, x))

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Four kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
-seven Pallas TPU kernels of the reference package:
+Five kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
+eleven Pallas TPU kernels of the reference package:
 
 =================================  ===========================================
 CUDA kernel (role counter)         TPU kernel it replaces
@@ -27,6 +27,17 @@ CUDA kernel (role counter)         TPU kernel it replaces
                                    (models/fracstep_tpu.py ``_mv32``)
 ``stream_ceiling`` (``stream14``)  bench.py:118 ``stream_ceiling``: the
                                    kernel bench's device-memory stream probe
+``class_sor_sweep`` (``sweep2``)   ops/kernels.py:586 ``sor_sweep_tpu2``: the
+                                   v2-fallback level smoother (no K)
+``class_sor_sweep`` (``sweep4``)   ops/kernels4.py:464 ``sor_sweep_tpu4``:
+                                   the same class sweep (``probes.ktime``)
+``ell_spmv`` (``spmv2``)           ops/kernels.py:510 ``spmv_tpu2``: the
+                                   v2-fallback level matvec and transfers
+``ell_spmv`` (``spmv4``)           ops/kernels4.py:383 ``spmv_tpu4``
+                                   (``probes.ktime``)
+``block_oneshot_sweep`` (sweep5)   ops/kernels4.py:620 ``sor_sweep_tpu5``:
+                                   the storage-order one-shot sweep at
+                                   128-row blocks (``probes.ktime``)
 =================================  ===========================================
 
 The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
@@ -44,8 +55,10 @@ non-zero ``cudaGetLastError()``, and adds one to its role's entry in
 ``COUNTS`` per launch.  There is no fallback from a failed launch.
 
 Also here: the host-side prep ported from the reference package —
-``build_oneshot_K`` (ops/kernels4.py), ``color_blocks`` (ops/kernels8.py)
-and ``union_slots`` (the kind rule of ops/kernels6.py's union tables).
+``build_oneshot_K`` (ops/kernels4.py), ``color_blocks`` (ops/kernels8.py),
+``union_slots`` (the kind rule of ops/kernels6.py's union tables) and
+``v6_supported`` (the rule by which ops/kernels6.py's layout takes or
+refuses an operator, which decides v6 or v2-fallback).
 """
 
 from __future__ import annotations
@@ -69,13 +82,15 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmmp_kernels.so")
 SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu", "compact_rows.cu",
-           "stream_ceiling.cu")
+           "stream_ceiling.cu", "class_sor_sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
-          "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0}
+          "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0, "sweep2": 0,
+          "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0}
+SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4")
 
 _lock = threading.Lock()
 _lib = None
@@ -141,6 +156,10 @@ def _load():
                 fn.argtypes = [p, p, i, i, p, p, i, p, p, p, i, p]
             lib.mmp_stream_ceiling.restype = i
             lib.mmp_stream_ceiling.argtypes = [p, p, i, i, i, p, p]
+            for name in ("mmp_class_sweep_f32", "mmp_class_sweep_f64"):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, p]
             _lib = lib
     return _lib
 
@@ -174,7 +193,9 @@ class DeviceEll:
     """Row-major ELL with global int32 columns (padding: value 0).
 
     ``role`` names the TPU kernel whose part this matrix plays ("spmv6" for
-    the coarsest level and the transfers, "spmv8" for colored levels).
+    the coarsest level and the transfers, "spmv8" for colored levels,
+    "spmv2" for v2-fallback levels and transfers the v6 layout refuses,
+    "spmv4" in ``probes.ktime``).
     """
 
     vals: torch.Tensor  # [nrows_pad, width] f32 or f64
@@ -192,7 +213,7 @@ class DeviceEll:
 
 
 def device_ell(ell: EllMatrix, dtype, device, role: str) -> DeviceEll:
-    if role not in ("spmv6", "spmv8"):
+    if role not in SPMV_ROLES:
         raise ValueError(f"unknown SpMV role {role!r}")
     return DeviceEll(
         vals=ell.vals.to(device=device, dtype=dtype).contiguous(),
@@ -249,7 +270,7 @@ class BlockSweep:
     order: torch.Tensor  # [nb] int32 block ids in execution order
     phase_ptr: tuple
     serial: bool
-    role: str  # "sweep6"/"sweep7" (storage order) or "sweep8" (colored)
+    role: str  # "sweep5"/"sweep6"/"sweep7" (storage order), "sweep8" (colored)
 
     @property
     def nphases(self) -> int:
@@ -321,6 +342,99 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
                 int(sw.serial), x.data_ptr(), stream)
         _launch_ok(rc, "block_oneshot_sweep")
         COUNTS[sw.role] += 1
+    return x
+
+
+# ---------------------------------------------------------------------------
+# class_sor_sweep
+# ---------------------------------------------------------------------------
+
+CLASS_SWEEP_ROLES = ("sweep2", "sweep4")
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassSweep:
+    """Tables of one level's class SOR sweep (no K): tiles of
+    ``class_size`` rows walked in storage order, each tile's rows gathering
+    from the same x.  Row vectors are ``[n_pad]``; padding rows carry
+    diag 1 and mask 0, so they never move."""
+
+    A: DeviceEll  # the level's square matrix
+    diag: torch.Tensor
+    mask: torch.Tensor  # smooth mask: rows with mask > 0 are updated
+    omega: torch.Tensor  # per-row omega (omega * omega_scale)
+    lagc: torch.Tensor  # Lagrange column
+    class_size: int
+    role: str  # "sweep2" (v2-fallback levels) or "sweep4" (probes.ktime)
+
+
+def class_sweep(A: DeviceEll, diag, mask, omega, lagc, class_size: int = 8,
+                role: str = "sweep2") -> ClassSweep:
+    """Tables from host vectors of length <= ``n_pad`` (the rest is padding:
+    diag 1, mask 0, omega 1, lag_col 0) in ``A``'s dtype and device."""
+    if role not in CLASS_SWEEP_ROLES:
+        raise ValueError(f"unknown class-sweep role {role!r}")
+    n_pad = A.nrows_pad
+    if A.ncols != n_pad or n_pad % class_size:
+        raise ValueError(f"class sweep needs a square operator of whole tiles: "
+                         f"{n_pad} x {A.ncols}, class size {class_size}")
+
+    def rows(v, fill):
+        out = torch.full((n_pad,), fill, dtype=torch.float64)
+        v = torch.as_tensor(v, dtype=torch.float64).reshape(-1)
+        out[: v.shape[0]] = v
+        return out.to(device=A.vals.device, dtype=A.vals.dtype).contiguous()
+
+    return ClassSweep(A=A, diag=rows(diag, 1.0), mask=rows(mask, 0.0),
+                      omega=rows(omega, 1.0), lagc=rows(lagc, 0.0),
+                      class_size=int(class_size), role=role)
+
+
+def class_sor_sweep_plain(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
+    """Plain version: a loop over the tiles in storage order, each tile one
+    batched gather-sum and the update of ``ops/smoothers._gs_sweep`` in the
+    form x += [mask] omega / d (b - lag_col x_lag - A x) (the same value:
+    the diagonal term of A x cancels ``(1 - omega) x``).  Updates ``x`` in
+    place and returns it.  CUDA tensors stay on the card; CPU tensors are
+    walked through numpy views of the same memory (a torch dispatch per
+    tile costs several times more)."""
+    S = sw.class_size
+    nt = sw.A.nrows_pad // S
+    coef = torch.where(sw.mask > 0, sw.omega / sw.diag, 0.0)
+    r0 = b - sw.lagc * x_lag
+    tabs = [sw.A.vals.view(nt, S, -1), sw.A.cols.long().view(nt, S, -1),
+            coef.view(nt, S), r0.view(nt, S), x, x.view(nt, S)]
+    if x.device.type == "cpu":
+        tabs = [t.numpy() for t in tabs]
+    vals, cols, coef, r0, xf, xv = tabs
+    for t in range(nt):
+        xv[t] += coef[t] * (r0[t] - (vals[t] * xf[cols[t]]).sum(1))
+    return x
+
+
+def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
+    """One full class SOR sweep on ``x``, in place; returns ``x``."""
+    if x.device.type == "cpu" and sw.A.vals.device.type == "cpu":
+        return class_sor_sweep_plain(sw, x, x_lag, b)
+    dev, dt = sw.A.vals.device, sw.A.vals.dtype
+    if dev.type != "cuda" or dt not in _SUFFIX:
+        raise ValueError(f"class_sor_sweep takes f32/f64 CUDA tensors, got {dt} on {dev}")
+    n_pad = sw.A.nrows_pad
+    _check("vals", sw.A.vals, dev, dt)
+    _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
+    for name in ("diag", "mask", "omega", "lagc"):
+        _check(name, getattr(sw, name), dev, dt, (n_pad,))
+    _check("x", x, dev, dt, (n_pad,))
+    _check("b", b, dev, dt, (n_pad,))
+    xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
+    _check("x_lag", xl, dev, dt, ())
+    fn = getattr(_load(), f"mmp_class_sweep_{_SUFFIX[dt]}")
+    rc = fn(sw.A.vals.data_ptr(), sw.A.cols.data_ptr(), sw.A.width, n_pad,
+            sw.class_size, sw.diag.data_ptr(), b.data_ptr(), sw.mask.data_ptr(),
+            sw.omega.data_ptr(), sw.lagc.data_ptr(), xl.data_ptr(), x.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, "class_sor_sweep")
+    COUNTS[sw.role] += 1
     return x
 
 
@@ -543,6 +657,23 @@ def block_patches(gcols: np.ndarray, nb: int) -> np.ndarray:
         out[i, : u.size] = u
         out[i, u.size:] = u[0]
     return out
+
+
+V6_MAX_PATCHES = 256  # prepare_kernel_ell6's max_patches (i16 slot packing)
+
+
+def v6_supported(ell: EllMatrix) -> bool:
+    """Whether the reference's v6 layout takes this operator.
+
+    ops/kernels6.py prepare_kernel_ell6 raises (and tpu_backend falls back
+    to the v2 kernels) when the assembly blocks are not whole 128-row blocks
+    or when a 128-row block reads more than 256 distinct x patches, padding
+    entries included (the sets of ``block_patches``).
+    """
+    if ell.block_rows % LANES:
+        return False
+    nb = ell.nrows_pad // LANES
+    return block_patches(global_cols(ell).numpy(), nb).shape[1] <= V6_MAX_PATCHES
 
 
 UNION_MB = 8  # consecutive blocks per union group (kernels6.py MB)

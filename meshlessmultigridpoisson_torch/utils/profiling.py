@@ -21,6 +21,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from meshlessmultigridpoisson_torch.ops.gpu_kernels import ClassSweep
+
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # memory bytes/s and arithmetic FLOP/s outside the tensor cores per dtype
 # (the kernels multiply bf16 K in f32 on the CUDA cores).
@@ -103,15 +105,25 @@ def spmv_flops(A) -> int:
 
 
 def sweep_bytes(sw) -> int:
-    """Bytes one full ``block_oneshot_sweep`` needs (``sw`` a BlockSweep):
+    """Bytes one full sweep needs.  ``block_oneshot_sweep`` (a BlockSweep):
     the matrix's nonzeros, K's nonzeros in K's own dtype, the Lagrange
-    column and the block order, x read and written once, b read once."""
+    column and the block order, x read and written once, b read once.
+    ``class_sor_sweep`` (a ClassSweep, no K): the matrix's nonzeros, x read
+    and written once, b, diag, mask, omega and the Lagrange column once."""
     es = sw.A.vals.element_size()
+    n = sw.A.nrows_pad
+    if isinstance(sw, ClassSweep):
+        return _nnz(sw.A.vals) * (es + 4) + 7 * n * es
     return (_nnz(sw.A.vals) * (es + 4) + _nnz(sw.kT) * sw.kT.element_size()
-            + sw.lagc.nbytes + sw.order.nbytes + 3 * sw.A.nrows_pad * es)
+            + sw.lagc.nbytes + sw.order.nbytes + 3 * n * es)
+
+
+CLASS_UPDATE_FLOPS = 10  # per row: lagc*xlag + y - d*x, (1-w) x + w/d (b - off)
 
 
 def sweep_flops(sw) -> int:
+    if isinstance(sw, ClassSweep):
+        return 2 * _nnz(sw.A.vals) + CLASS_UPDATE_FLOPS * sw.A.nrows_pad
     return 2 * _nnz(sw.A.vals) + 2 * _nnz(sw.kT)
 
 

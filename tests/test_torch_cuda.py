@@ -16,7 +16,10 @@ gather-sum with a two-operation epilogue: the SpMV's tolerances.  The
 bf16-K sweep against its bf16 plain version: 1e-2 of max |dx| (both round
 t to bf16; a t element on the other side of a rounding boundary moves its
 column's contribution by one bf16 ulp, 2^-8).  ``stream_ceiling`` sums
-small integers: exact.
+small integers: exact.  ``class_sor_sweep`` (K-free class SOR) against
+its plain version: the sweep's tolerances, on the fixture (unpermuted:
+rows of one 8-row tile couple), on ``probes.realsparsity``'s 4,096-row
+pattern and on a (block, class)-permuted solve level.
 """
 
 import numpy as np
@@ -317,3 +320,84 @@ def test_cli_solve_exact_and_fast_k_on_card():
     assert rec.final_residual < 1e-10
     assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact", "v8-colored"]
     assert rec.extra["level_k_dtypes"] == ["torch.bfloat16"] * 3
+
+
+def _class_sweep(case, dtype, et):
+    """A ClassSweep with frozen rows, per-row omega and a Lagrange column:
+    "fixture" (the kd-tile pattern above), "real" (the probe's pattern at
+    4,096 rows), "level" (the fine level of a small square solve)."""
+    if case == "level":
+        from meshlessmultigridpoisson_torch.mg.gpu_backend import gpu_level_from_operator
+        from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
+
+        op = make_poisson_problem("square", sizes=[170, 600], poly_deg=3).hierarchy.finest
+        return gpu_level_from_operator(op, "cuda", dtype, use_v6=False).sweep
+    if case == "real":
+        from meshlessmultigridpoisson_torch.probes.realsparsity import real_pattern_csr
+
+        ell = tell.ell_from_csr(real_pattern_csr(4096), block_rows=128)
+    else:  # the fixture padded to a square operator with identity rows
+        a = tell.ell_to_csr(et)
+        pad = et.nrows_pad - a.shape[0]
+        ell = tell.ell_from_csr(sp.block_diag([a, sp.identity(pad)], format="csr"),
+                                block_rows=128)
+    n_pad = ell.nrows_pad
+    omega = np.full(n_pad, 1.4)
+    omega[::5] = 1.0
+    smask = np.ones(n_pad)
+    smask[::7] = 0.0
+    return gk.class_sweep(gk.device_ell(ell, dtype, "cuda", "spmv2"), ell.diag, smask,
+                          omega, np.full(n_pad, 0.01), role="sweep2")
+
+
+@pytest.mark.parametrize("case", ["fixture", "real", "level"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_class_sor_sweep_matches_plain(et, case, dtype, tol):
+    sw = _class_sweep(case, dtype, et)
+    n = sw.A.nrows_pad
+    x, b = _rand(n, dtype, 12), _rand(n, dtype, 13)
+    xl = torch.tensor(0.3, dtype=dtype, device="cuda")
+    before = dict(gk.COUNTS)
+    out = gk.class_sor_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        "sweep2": 1}
+    ref = gk.class_sor_sweep_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    frozen = sw.mask == 0
+    assert bool(frozen.any()) and torch.equal(out[frozen], x[frozen])
+
+
+def test_cli_solve_v2_fallback_on_card():
+    """``use_v6=False``: every level on the class sweep and the v2 matvec,
+    the transfers on the v6 SpMV; the solve reaches its tolerance, and
+    ``--profile`` gives the v2 levels' per-level table."""
+    from meshlessmultigridpoisson_torch.apps import cli
+
+    argv = ["solve", "--device", "cuda", "--geom", "square_with_circle",
+            "--sizes", "600", "2500", "5000", "--deg", "4", "--ordering", "kdtile",
+            "--block-rows", "512", "--tol", "1e-10"]
+    rec, *_ = cli.run_solve(argv + ["--profile"], use_v6=False)
+    assert rec.final_residual < 1e-10 and rec.l1_error < 1e-6
+    assert rec.extra["level_kernels"] == ["v2-fallback"] * 3
+    assert rec.extra["level_k_dtypes"] == [None] * 3
+    launches = rec.extra["launches"]
+    assert all(launches[r] > 0 for r in ("sweep2", "spmv2", "spmv6")), launches
+    assert all(launches[r] == 0 for r in ("sweep6", "sweep7", "sweep8", "spmv8")), launches
+    rows = rec.extra["per_level"]  # --profile takes v2 levels
+    assert [r["kernel"] for r in rows] == ["v2-fallback"] * 3
+    assert all(0 < r["sweep_bound_ms"] <= r["sweep_ms"] for r in rows)
+
+
+def test_ktime_probe_on_card():
+    """The kernel-generation probe at a small size: every role launched,
+    each kernel held against its plain version inside the probe."""
+    from meshlessmultigridpoisson_torch.probes import ktime
+
+    gk.reset_counts()
+    res = ktime.run(n=16384, iters=2)
+    assert all(gk.COUNTS[r] > 0 for r in ("spmv2", "sweep2", "spmv4", "sweep4", "sweep5"))
+    assert set(res["kernels"]) == {"spmv v2 (br=128)", "sweep v2 (br=128)",
+                                   "spmv v2 (br=256)", "sweep v2 (br=256)",
+                                   "spmv v4", "sweep v4", "sweep v5"}
+    assert all(0 < r["bound_ms"] <= 1.05 * r["ms"] for r in res["kernels"].values())

@@ -31,7 +31,7 @@ print(" ".join(names))
 SLICE_MODULES = (
     "ops.gpu_kernels", "mg.gpu_backend", "mg.mixed", "mg.krylov", "apps.cli",
     "interop", "models.fracstep", "models.fracstep_gpu", "geometry.msh",
-    "bench", "utils.profiling",
+    "bench", "utils.profiling", "probes.realsparsity", "probes.ktime",
 )
 
 

@@ -257,4 +257,4 @@ def test_wrappers_refuse_cuda_mismatch(ells):
     with pytest.raises(ValueError):
         gk.ell_spmv(A, x)
     with pytest.raises(ValueError):
-        gk.device_ell(et, torch.float32, "cpu", "spmv2")
+        gk.device_ell(et, torch.float32, "cpu", "spmv9")
