@@ -65,13 +65,21 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    kind against their plain versions before it times them): prints its
    JSON line; checks the SpMV spot check, ``stream14``, ``spmv6``,
    ``sweep6`` and ``sweep8`` launched, and every ``pct_of_bound`` <= 105;
-6. the kernel-generation probe (``meshlessmultigridpoisson_torch.probes.
+6. on the bench's host operator (built once, before the bench, for the
+   bench and both probes): ``probes.kexp`` with 3 iterations (``spmv2``,
+   ``spmv3`` and ``spmv1`` at 128- and 256-row blocks, ``sweep1`` at 128),
+   then ``probes.ksweepprobe`` with 3 sweeps (the four modes of
+   ``sweep_probe``), each in-process with its counts set to 0 before and
+   read after; each probe holds every kernel or mode against its plain
+   version before timing it; every role launched, each at or above its
+   bound; prints the chain's split per block;
+7. the kernel-generation probe (``meshlessmultigridpoisson_torch.probes.
    ktime``) in-process on its real 1,048,576-row pattern with 5 iterations
    (counts set to 0 before, read after; the probe holds every kernel
    against its plain version before timing it): ``spmv2`` and ``sweep2``
    at 128- and 256-row blocks, ``spmv4``, ``sweep4`` and ``sweep5``, each
    launched, each at or above its bound;
-7. print a JSON line of per-kernel results, the total time, then, as the
+8. print a JSON line of per-kernel results, the total time, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package next to it, it exits with a
@@ -128,6 +136,16 @@ ROLES = {
     "sweep5": ("block_oneshot_sweep",
                "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels4.py:620"),
+    "spmv1": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+              "meshlessmultigridpoisson_tpu/ops/kernels.py:222"),
+    "spmv3": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+              "meshlessmultigridpoisson_tpu/ops/kernels.py:669"),
+    "sweep1": ("class_sor_sweep", "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
+               "meshlessmultigridpoisson_tpu/ops/kernels.py:303"),
+    **{m: ("block_oneshot_sweep",
+           "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+           "scripts/ksweepprobe.py:110")
+       for m in ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")},
 }
 DIRICHLET_ROLES = ("spmv6", "spmv8", "sweep7", "sweep8")
 EXACT_ROLES = ("spmv6", "sweep6", "sweep7")
@@ -136,6 +154,11 @@ V2_ROLES = ("spmv2", "spmv6", "sweep2")
 KTIME_N, KTIME_ITERS = 1_048_576, 5
 KTIME_ROLES = ("spmv2", "sweep2", "spmv4", "sweep4", "sweep5")
 BENCH_ROLES = ("spmv6", "sweep6", "sweep8", "stream14")
+# the probes on the bench's 1M-row operator (built once for all three)
+KEXP_ITERS = 3
+KEXP_ROLES = ("spmv1", "spmv2", "spmv3", "sweep1")
+SWEEPPROBE_ITERS = 3
+SWEEPPROBE_ROLES = ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")
 NEUMANN_ROLES = DIRICHLET_ROLES + ("bound2", "push2")
 # the NS main path: the reference program's default run at its own width
 # and depth (cli ns defaults), S steps from rest
@@ -249,7 +272,7 @@ def main(argv=None) -> int:
         )
         from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
         from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
-        from meshlessmultigridpoisson_torch.probes import ktime
+        from meshlessmultigridpoisson_torch.probes import kexp, ksweepprobe, ktime
         from meshlessmultigridpoisson_torch.utils import profiling as pf
     except ImportError as e:
         return fail(f"the port package is not next to this script ({e})")
@@ -611,9 +634,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. the kernel bench -------------------------------------------------
+    t0 = time.perf_counter()
+    bench_op = bench.build_operator()
+    print(f"bench operator (host, shared by the bench, kexp and ksweepprobe): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print("main path (bench): python -m meshlessmultigridpoisson_torch.bench", flush=True)
     gk.reset_counts()
-    res = bench.run()
+    res = bench.run(op=bench_op)
     torch.cuda.synchronize()
     launches["bench"] = dict(gk.COUNTS)
     print(json.dumps(res), flush=True)
@@ -629,7 +656,47 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- 6. the kernel-generation probe --------------------------------------
+    def probe_results(name, res, roles):
+        """Counts read, every role launched, each time at or above its
+        bound; the probe's rows joined to the kernels line."""
+        print(json.dumps(res), flush=True)
+        print(f"launches during the {name} probe: {launches[name]}", flush=True)
+        idle = [r for r in roles if launches[name][r] == 0]
+        if idle:
+            raise AssertionError(f"{name}: kernel roles never launched: {idle}")
+        for label, r in res["kernels"].items():
+            if not r["pct_of_bound"] <= PCT_OF_BOUND_MAX:
+                raise AssertionError(f"{name} {label}: time below the bound "
+                                     f"({r['pct_of_bound']:.1f}%)")
+            results[r["role"]].append(dict(
+                label=f"{name} {label}, bench operator {res['n']} rows",
+                **{k: r[k] for k in ("max_abs_err", "rel_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}))
+
+    # ---- 6. kexp and the sweep probe on the bench's operator ------------------
+    print("main path (kexp): python -m meshlessmultigridpoisson_torch.probes.kexp "
+          f"{bench.N} {KEXP_ITERS}", flush=True)
+    gk.reset_counts()
+    res = kexp.run(bench.N, KEXP_ITERS, a=bench_op["a"])
+    torch.cuda.synchronize()
+    launches["kexp"] = dict(gk.COUNTS)
+    probe_results("kexp", res, KEXP_ROLES)
+    del res
+    torch.cuda.empty_cache()
+    print("main path (ksweepprobe): python -m meshlessmultigridpoisson_torch.probes."
+          f"ksweepprobe {SWEEPPROBE_ITERS}", flush=True)
+    gk.reset_counts()
+    res = ksweepprobe.run(SWEEPPROBE_ITERS, op=bench_op)
+    torch.cuda.synchronize()
+    launches["ksweepprobe"] = dict(gk.COUNTS)
+    probe_results("ksweepprobe", res, SWEEPPROBE_ROLES)
+    print(f"ksweepprobe: storage-order chain per 128-row block ({card}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res["split_per_block"].items()),
+          flush=True)
+    del res, bench_op
+    torch.cuda.empty_cache()
+
+    # ---- 7. the kernel-generation probe --------------------------------------
     print("main path (ktime): python -m meshlessmultigridpoisson_torch.probes.ktime "
           f"{KTIME_N} {KTIME_ITERS}", flush=True)
     gk.reset_counts()
@@ -651,7 +718,7 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- 7. results ----------------------------------------------------------
+    # ---- 8. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
         by_path = {p: n[role] for p, n in launches.items()}

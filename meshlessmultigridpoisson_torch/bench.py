@@ -95,8 +95,10 @@ def _kernel_row(name, ms, nbytes, flops, dtype, card):
                 bound_ms=b_ms, bound_by=by, pct_of_bound=100.0 * b_ms / ms)
 
 
-def run(seed: int = 0) -> dict:
-    """Build, time and check; returns the result line as a dict."""
+def run(seed: int = 0, op: dict | None = None) -> dict:
+    """Build, time and check; returns the result line as a dict.  ``op``:
+    ``build_operator(seed=seed)``'s output, built by the caller (its host
+    setup time is then not in the line)."""
     if not torch.cuda.is_available():
         raise SystemExit("the kernel bench times on the card: "
                          "torch.cuda.is_available() is False")
@@ -108,8 +110,9 @@ def run(seed: int = 0) -> dict:
     peak = pf.peaks(info["name"])
     log(f"card {info['name']}, power limit {info['power_limit']}")
     t0 = time.perf_counter()
-    log(f"building synthetic operator n={N} k={K} band={BAND} seed={seed}")
-    op = build_operator(N, K, BAND, seed)
+    if op is None:
+        log(f"building synthetic operator n={N} k={K} band={BAND} seed={seed}")
+        op = build_operator(N, K, BAND, seed)
     a, ell = op["a"], op["ell"]
     nb = ell.nrows_pad // gk.LANES
     nnz = int(a.nnz)

@@ -44,6 +44,25 @@
 // sweep than 256 and ahead of 1024 end to end on the slice (H100, PERF.md).
 // TMA/wgmma staging of K, fusing colors into a persistent kernel and
 // shortening the storage-order chain are later work.
+//
+// Timing-only variants (the reference's scripts/ksweepprobe.py:110
+// make_sweep_variant; probes/ksweepprobe.py): the kernel is templated on a
+// compile-time Mode.  The production entry points instantiate kBase only,
+// and their code is the same as before the variants existed.  The others
+// compute other functions, are f32 only, run the storage-order chain on
+// one CTA, and never reach a solve; each splits off one part of a chain
+// step so that the base time minus the variant's time is that part's cost:
+//   kNoDot     skip the K product: x_blk += t
+//   kNoGather  skip the gather and row sum: t = b - lag_col * x_lag,
+//              then x_blk += K t
+//   kHoist     the blocks of each group of kGroup consecutive list entries
+//              all gather x as it stood when the group began (the rows
+//              the group writes are read stale); the updates are as in
+//              kBase.  So the group's 1,024 row gathers are issued at once,
+//              and no x load of a group waits on an update of that group.
+//              The port's own definition: the reference's hoist fills its
+//              scratch from the first block's patch list only, an artifact
+//              of the TPU's patch-table layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +73,9 @@ constexpr int kWarp = 32;
 constexpr int kBlk = 128;      // rows per block (the reference's lane width)
 constexpr int kThreads = 512;  // 16 warps: 8 rows each for the gather
 constexpr int kSplit = kThreads / kBlk;  // partial sums per output row
+constexpr int kGroup = 8;  // blocks per hoisted group (the reference's MB)
+
+enum SweepMode : int { kBase = 0, kHoist = 1, kNoDot = 2, kNoGather = 3 };
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -77,7 +99,47 @@ __device__ __forceinline__ float t_in<float, __nv_bfloat16>(float t) {
   return __bfloat162float(__float2bfloat16(t));
 }
 
+// (A x)_row by one warp, valid in lane 0; kNoGather skips it (0)
+template <int Mode, typename T>
+__device__ __forceinline__ T row_sum(const T* __restrict__ vals,
+                                     const int* __restrict__ cols, int width,
+                                     const T* x, size_t row, int lane) {
+  T acc = T(0);
+  if constexpr (Mode != kNoGather) {
+    const size_t base = row * static_cast<size_t>(width);
+    for (int k = lane; k < width; k += kWarp) {
+      acc += vals[base + k] * x[cols[base + k]];
+    }
+    acc = warp_sum(acc);
+  }
+  return acc;
+}
+
+// x_blk += K_blk t (t in shared memory): thread (h, r) sums inputs
+// [h, h + 1) * kBlk / kSplit for output row r; thread (0, r) adds the
+// kSplit partial sums.  Ends with the block barrier.
 template <typename T, typename KT>
+__device__ __forceinline__ void add_k_product(const KT* __restrict__ kb,
+                                              const T* t_s, T* part, T* x,
+                                              size_t row0) {
+  const int r = threadIdx.x % kBlk;
+  const int h = threadIdx.x / kBlk;
+  T dx = T(0);
+  for (int c = h * (kBlk / kSplit); c < (h + 1) * (kBlk / kSplit); ++c) {
+    dx += k_val(kb[c * kBlk + r]) * t_s[c];
+  }
+  part[threadIdx.x] = dx;
+  __syncthreads();
+  if (h == 0) {
+    T acc = T(0);
+    for (int q = 0; q < kSplit; ++q) acc += part[r + q * kBlk];
+    x[row0 + r] += acc;
+  }
+  // the next block of this CTA (storage-order chain) reads the new rows
+  __syncthreads();
+}
+
+template <typename T, typename KT, int Mode>
 __global__ void __launch_bounds__(kThreads)
 block_oneshot_sweep_kernel(const T* __restrict__ vals,
                            const int* __restrict__ cols, int width,
@@ -87,61 +149,67 @@ block_oneshot_sweep_kernel(const T* __restrict__ vals,
                            const KT* __restrict__ kT,
                            const int* __restrict__ blk_ids, int nblk,
                            T* x) {  // read and written: no __restrict__
-  __shared__ T t_s[kBlk];
+  __shared__ T t_s[Mode == kHoist ? kGroup * kBlk : kBlk];
   __shared__ T part[kThreads];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const T xlag = *xlag_ptr;
 
-  for (int i = blockIdx.x; i < nblk; i += gridDim.x) {
-    const int blk = blk_ids[i];
-    const size_t row0 = static_cast<size_t>(blk) * kBlk;
-
-    // t = b - A x - lag_col * x_lag: one warp per row
-    for (int r = warp; r < kBlk; r += kThreads / kWarp) {
-      const size_t base = (row0 + r) * static_cast<size_t>(width);
-      T acc = T(0);
-      for (int k = lane; k < width; k += kWarp) {
-        acc += vals[base + k] * x[cols[base + k]];
+  if constexpr (Mode == kHoist) {
+    for (int g = blockIdx.x * kGroup; g < nblk; g += gridDim.x * kGroup) {
+      const int gsize = min(kGroup, nblk - g);
+      // every row of the group gathers from x as it stands now
+      for (int q = warp; q < gsize * kBlk; q += kThreads / kWarp) {
+        const size_t row = static_cast<size_t>(blk_ids[g + q / kBlk]) * kBlk
+                           + q % kBlk;
+        const T acc = row_sum<Mode>(vals, cols, width, x, row, lane);
+        if (lane == 0) {
+          t_s[q] = t_in<T, KT>(b[row] - acc - lagc[row] * xlag);
+        }
       }
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        t_s[r] = t_in<T, KT>(b[row0 + r] - acc - lagc[row0 + r] * xlag);
+      __syncthreads();
+      for (int j = 0; j < gsize; ++j) {
+        const int blk = blk_ids[g + j];
+        add_k_product<T, KT>(kT + static_cast<size_t>(blk) * kBlk * kBlk,
+                             t_s + j * kBlk, part, x,
+                             static_cast<size_t>(blk) * kBlk);
       }
     }
-    __syncthreads();
+  } else {
+    for (int i = blockIdx.x; i < nblk; i += gridDim.x) {
+      const int blk = blk_ids[i];
+      const size_t row0 = static_cast<size_t>(blk) * kBlk;
 
-    // dx = K t: thread (h, r) sums inputs [h, h + 1) * kBlk / kSplit for
-    // output row r; thread (0, r) adds the kSplit partial sums
-    const int r = threadIdx.x % kBlk;
-    const int h = threadIdx.x / kBlk;
-    const KT* kb = kT + static_cast<size_t>(blk) * kBlk * kBlk;
-    T dx = T(0);
-    for (int c = h * (kBlk / kSplit); c < (h + 1) * (kBlk / kSplit); ++c) {
-      dx += k_val(kb[c * kBlk + r]) * t_s[c];
+      // t = b - A x - lag_col * x_lag: one warp per row
+      for (int r = warp; r < kBlk; r += kThreads / kWarp) {
+        const T acc = row_sum<Mode>(vals, cols, width, x, row0 + r, lane);
+        if (lane == 0) {
+          t_s[r] = t_in<T, KT>(b[row0 + r] - acc - lagc[row0 + r] * xlag);
+        }
+      }
+      __syncthreads();
+
+      if constexpr (Mode == kNoDot) {
+        if (threadIdx.x < kBlk) x[row0 + threadIdx.x] += t_s[threadIdx.x];
+        __syncthreads();
+      } else {
+        add_k_product<T, KT>(kT + static_cast<size_t>(blk) * kBlk * kBlk, t_s,
+                             part, x, row0);
+      }
     }
-    part[threadIdx.x] = dx;
-    __syncthreads();
-    if (h == 0) {
-      T acc = T(0);
-      for (int q = 0; q < kSplit; ++q) acc += part[r + q * kBlk];
-      x[row0 + r] += acc;
-    }
-    // the next block of this CTA (storage-order chain) reads the new rows
-    __syncthreads();
   }
 }
 
-template <typename T, typename KT>
+template <typename T, typename KT, int Mode = kBase>
 int launch_sweep(const T* vals, const int* cols, int width, const T* b,
                  const T* lagc, const T* xlag, const KT* kT,
                  const int* blk_ids, int nblk, int serial, T* x,
                  void* stream) {
   if (nblk > 0) {
     const int grid = serial ? 1 : nblk;
-    block_oneshot_sweep_kernel<T, KT><<<grid, kThreads, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
-        vals, cols, width, b, lagc, xlag, kT, blk_ids, nblk, x);
+    block_oneshot_sweep_kernel<T, KT, Mode>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            vals, cols, width, b, lagc, xlag, kT, blk_ids, nblk, x);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -177,4 +245,34 @@ extern "C" int mmp_block_sweep_f32_bf16k(const float* vals, const int* cols,
   return launch_sweep<float, __nv_bfloat16>(vals, cols, width, b, lagc, xlag,
                                             kT, blk_ids, nblk, serial, x,
                                             stream);
+}
+
+// the timing-only variants (f32, storage order, one CTA); mode is a
+// SweepMode.  Returns cudaErrorInvalidValue for an unknown mode.
+extern "C" int mmp_sweep_probe_f32(const float* vals, const int* cols,
+                                   int width, const float* b,
+                                   const float* lagc, const float* xlag,
+                                   const float* kT, const int* blk_ids,
+                                   int nblk, int mode, float* x,
+                                   void* stream) {
+  switch (mode) {
+    case kBase:
+      return launch_sweep<float, float, kBase>(vals, cols, width, b, lagc,
+                                               xlag, kT, blk_ids, nblk, 1, x,
+                                               stream);
+    case kHoist:
+      return launch_sweep<float, float, kHoist>(vals, cols, width, b, lagc,
+                                                xlag, kT, blk_ids, nblk, 1, x,
+                                                stream);
+    case kNoDot:
+      return launch_sweep<float, float, kNoDot>(vals, cols, width, b, lagc,
+                                                xlag, kT, blk_ids, nblk, 1, x,
+                                                stream);
+    case kNoGather:
+      return launch_sweep<float, float, kNoGather>(vals, cols, width, b, lagc,
+                                                   xlag, kT, blk_ids, nblk, 1,
+                                                   x, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -10,9 +10,11 @@ the kernels' layouts on ``device``:
 * the one-shot block GS tables for ``block_oneshot_sweep``: per-block
   K = (D/omega + L)^-1 with omega * omega_scale and the smooth mask folded
   in (f32, f64, or bf16 under ``k_dtype``), and the block execution order.
-  ``sweep_order="colored"``: colored (one phase per color) on levels with
-  at least 32 blocks of 128 rows ("v8-colored", the reference's
-  ``prepare_colored_sweep`` threshold), storage order otherwise.
+  ``sweep_order="colored"``: colored (one phase per color, "v8-colored")
+  on levels the reference's ``prepare_colored_sweep`` takes
+  (``ops.gpu_kernels.colored_refusal``: at least 32 blocks of 128 rows,
+  duplicate padding within 2x, program scratch within 96 or 256 slots),
+  storage order otherwise.
   ``sweep_order="exact"``: storage order on every level, the matvec on the
   ``spmv6`` role throughout (the reference keeps ``kell6`` there).  A
   storage-order level is "v6-oneshot" (role ``sweep6``) where the
@@ -62,6 +64,7 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     class_sweep,
     color_blocks,
     colored_order,
+    colored_refusal,
     compact_rows,
     device_compact,
     device_ell,
@@ -71,9 +74,6 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
 )
 from meshlessmultigridpoisson_torch.stencil.operators import CompactRows, LevelOperator
 
-# below this many 128-row blocks the colored sweep loses to the storage-order
-# chain (reference ops/kernels8.py prepare_colored_sweep, min_blocks=32)
-MIN_COLORED_BLOCKS = 32
 SWEEP_ORDERS = ("colored", "exact")
 
 
@@ -193,7 +193,12 @@ def gpu_level_from_operator(
     device = torch.device(device)
     nb = op.n_pad // LANES
     v2 = runs_v2(op, use_v6)
-    colored = not v2 and sweep_order == "colored" and nb >= MIN_COLORED_BLOCKS
+    colored = False
+    if not v2:
+        pids = block_patches(global_cols(op.A).numpy(), nb)
+        if sweep_order == "colored":
+            colors = color_blocks(pids, nb)
+            colored = colored_refusal(pids, nb, colors) is None
     role = "spmv2" if v2 else ("spmv8" if colored else "spmv6")
     A = device_ell(op.A, dtype, device, role=role)
 
@@ -208,9 +213,8 @@ def gpu_level_from_operator(
         kT = build_oneshot_K(
             op.A, op.omega * op.omega_scale.numpy(), op.smooth_mask.numpy(),
             class_size=op.class_size)
-        pids = block_patches(global_cols(op.A).numpy(), nb)
         if colored:
-            order, ptr = colored_order(color_blocks(pids, nb))
+            order, ptr = colored_order(colors)
             role = "sweep8"
         else:
             order, ptr = np.arange(nb), (0, nb)

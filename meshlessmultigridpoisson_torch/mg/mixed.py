@@ -17,7 +17,7 @@ Two forms, both host loops here (PyTorch runs eagerly):
   inner_iters x 2, up to ``max_escalations`` times) and a pass that made
   the residual worse is rolled back.
 
-``solve_mixed``'s ``matvec64`` / ``matvec32`` optionally replace the outer /
+In both forms ``matvec64`` / ``matvec32`` optionally replace the outer /
 inner fine operator (``(x, x_lag) -> (y, y_lag)``), as the matrix-free
 compatible PPE does.  Both forms end with the f64 Neumann boundary-row
 re-solve.
@@ -142,6 +142,8 @@ def solve_mixed_stepped(
     inner_tol=1e-5,
     inner_iters: int = 60,
     max_outer: int = 20,
+    matvec64=None,
+    matvec32=None,
     log=None,
     stall: float = 0.7,
     max_escalations: int = 2,
@@ -150,17 +152,19 @@ def solve_mixed_stepped(
 
     op64: f64 fine operator (a matvec-only GpuLevel on the device, or a
     host LevelOperator).  hier32_defect: ``defect_hierarchy(gpu_hierarchy(
-    ...))``.  Returns (x64, xl64, outer_iters, rel_residual).
+    ...))``.  ``matvec64`` / ``matvec32``: as in ``solve_mixed``.  Returns
+    (x64, xl64, outer_iters, rel_residual).
     """
     b, bl, bnorm, x, xl = _prepare(op64, x0, xl0, b, bl)
-    r, rl = _residual64(op64, x, xl, b, bl)
+    r, rl = _residual64(op64, x, xl, b, bl, matvec64)
     res = _l1(r, rl) / bnorm
     it, escalations = 0, 0
     while res >= tol and it < max_outer:
-        e, el, _, _ = _inner(hier32_defect, r, rl, inner_tol, inner_iters)
+        e, el, _, _ = _inner(hier32_defect, r, rl, inner_tol, inner_iters,
+                             matvec32)
         x_new = torch.where(op64.dirichlet_mask > 0, op64.dirichlet_values, x + e)
         xl_new = xl + el
-        r_new, rl_new = _residual64(op64, x_new, xl_new, b, bl)
+        r_new, rl_new = _residual64(op64, x_new, xl_new, b, bl, matvec64)
         res_new = _l1(r_new, rl_new) / bnorm
         it += 1
         accepted = res_new < res

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 Five kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
-eleven Pallas TPU kernels of the reference package:
+fourteen Pallas TPU kernels of the reference package and one of its timing
+probes:
 
 =================================  ===========================================
 CUDA kernel (role counter)         TPU kernel it replaces
@@ -38,13 +39,28 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``block_oneshot_sweep`` (sweep5)   ops/kernels4.py:620 ``sor_sweep_tpu5``:
                                    the storage-order one-shot sweep at
                                    128-row blocks (``probes.ktime``)
+``ell_spmv`` (``spmv1``)           ops/kernels.py:222 ``spmv_tpu``: the v1
+                                   windowed class-interleaved ELL
+                                   (``probes.kexp``)
+``ell_spmv`` (``spmv3``)           ops/kernels.py:669 ``spmv_tpu3``: patch
+                                   tables gathered outside the kernel on
+                                   the TPU, inside it here (``probes.kexp``)
+``class_sor_sweep`` (``sweep1``)   ops/kernels.py:303 ``sor_sweep_tpu``: the
+                                   v1 (block, class) GS, kernel 7's function
+                                   (``probes.kexp``)
+``block_oneshot_sweep``            scripts/ksweepprobe.py:110
+(``probe_base``, ``probe_hoist``,  ``make_sweep_variant``: the
+``probe_nodot``,                   storage-order sweep and its timing-only
+``probe_nogather``)                variants (``sweep_probe``;
+                                   ``probes.ksweepprobe``)
 =================================  ===========================================
 
 The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
 all three sweep roles.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
-with a plain C interface (``build()``), at first launch, into this package's
+Build: ``nvcc -gencode arch=compute_90a,code=sm_90a``, one process per
+source started together, linked into a shared library with a plain C
+interface (``build()``), at first launch, into this package's
 git-ignored ``build/`` directory; loaded with ctypes.  Nothing here imports
 a CUDA toolchain or touches the device at import time.
 
@@ -58,7 +74,9 @@ Also here: the host-side prep ported from the reference package —
 ``build_oneshot_K`` (ops/kernels4.py), ``color_blocks`` (ops/kernels8.py),
 ``union_slots`` (the kind rule of ops/kernels6.py's union tables) and
 ``v6_supported`` (the rule by which ops/kernels6.py's layout takes or
-refuses an operator, which decides v6 or v2-fallback).
+refuses an operator, which decides v6 or v2-fallback) and
+``colored_refusal`` (ops/kernels8.py ``prepare_colored_sweep``'s refusals,
+which decide colored or storage order).
 """
 
 from __future__ import annotations
@@ -84,13 +102,15 @@ LIB_PATH = os.path.join(BUILD_DIR, "libmmp_kernels.so")
 SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu", "compact_rows.cu",
            "stream_ceiling.cu", "class_sor_sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0, "sweep2": 0,
-          "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0}
-SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4")
+          "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0, "spmv1": 0,
+          "spmv3": 0, "sweep1": 0, "probe_base": 0, "probe_hoist": 0,
+          "probe_nodot": 0, "probe_nogather": 0}
+SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4", "spmv1", "spmv3")
 
 _lock = threading.Lock()
 _lib = None
@@ -124,13 +144,36 @@ def build(verbose: bool = False) -> str:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, flags = _nvcc(), [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+    # one nvcc per source, all started together, then one link
+    objs = [f"{os.path.join(BUILD_DIR, os.path.basename(s))}.{os.getpid()}.o"
+            for s in srcs]
+    procs = []
+    try:
+        for s, o in zip(srcs, objs):
+            procs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", o, s],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        # every process is waited for before any failure is raised
+        report = [pr.communicate()[1] for pr in procs]
+        for s, pr, err in zip(srcs, procs, report):
+            if pr.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(s)} "
+                                   f"({pr.returncode}):\n{err}")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     if verbose:
-        print(proc.stderr, end="")
+        print("".join(report), end="")
     os.replace(tmp, LIB_PATH)  # atomic: concurrent processes may race
     return LIB_PATH
 
@@ -156,6 +199,8 @@ def _load():
                 fn.argtypes = [p, p, i, i, p, p, i, p, p, p, i, p]
             lib.mmp_stream_ceiling.restype = i
             lib.mmp_stream_ceiling.argtypes = [p, p, i, i, i, p, p]
+            lib.mmp_sweep_probe_f32.restype = i
+            lib.mmp_sweep_probe_f32.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
             for name in ("mmp_class_sweep_f32", "mmp_class_sweep_f64"):
                 fn = getattr(lib, name)
                 fn.restype = i
@@ -195,7 +240,7 @@ class DeviceEll:
     ``role`` names the TPU kernel whose part this matrix plays ("spmv6" for
     the coarsest level and the transfers, "spmv8" for colored levels,
     "spmv2" for v2-fallback levels and transfers the v6 layout refuses,
-    "spmv4" in ``probes.ktime``).
+    "spmv4" in ``probes.ktime``, "spmv1" and "spmv3" in ``probes.kexp``).
     """
 
     vals: torch.Tensor  # [nrows_pad, width] f32 or f64
@@ -270,7 +315,9 @@ class BlockSweep:
     order: torch.Tensor  # [nb] int32 block ids in execution order
     phase_ptr: tuple
     serial: bool
-    role: str  # "sweep5"/"sweep6"/"sweep7" (storage order), "sweep8" (colored)
+    # "sweep5"/"sweep6"/"sweep7" (storage order), "sweep8" (colored), or a
+    # PROBE_MODES role (``sweep_probe`` only)
+    role: str
 
     @property
     def nphases(self) -> int:
@@ -286,16 +333,21 @@ _SWEEP_SUFFIX = {(torch.float32, torch.float32): "f32",
                  (torch.float32, torch.bfloat16): "f32_bf16k"}
 
 
-def _oneshot_update(sw: BlockSweep, x, x_lag, b, ids: torch.Tensor) -> None:
+def _oneshot_update(sw: BlockSweep, x, x_lag, b, ids: torch.Tensor, gather: bool = True,
+                    dot: bool = True) -> None:
+    """The blocks ``ids`` gather from x as it stands and add K t to their
+    rows; the probe modes drop the gather (t = b - lag_col x_lag) or the
+    K product (add t)."""
     rows = (ids.long()[:, None] * LANES
             + torch.arange(LANES, device=ids.device)).reshape(-1)
-    y = (sw.A.vals[rows] * x[sw.A.cols[rows].long()]).sum(dim=1)
+    y = (sw.A.vals[rows] * x[sw.A.cols[rows].long()]).sum(dim=1) if gather else 0.0
     t = b[rows] - y - sw.lagc[rows] * x_lag
-    k = sw.kT[ids.long()]
-    if k.dtype != x.dtype:  # bf16 K: t rounded to bf16, products exact in f32
-        t, k = t.to(k.dtype).to(x.dtype), k.to(x.dtype)
-    dx = torch.bmm(t.view(-1, 1, LANES), k).reshape(-1)
-    x[rows] = x[rows] + dx
+    if dot:
+        k = sw.kT[ids.long()]
+        if k.dtype != x.dtype:  # bf16 K: t rounded to bf16, products exact in f32
+            t, k = t.to(k.dtype).to(x.dtype), k.to(x.dtype)
+        t = torch.bmm(t.view(-1, 1, LANES), k).reshape(-1)
+    x[rows] = x[rows] + t
 
 
 def block_oneshot_sweep_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
@@ -314,6 +366,8 @@ def block_oneshot_sweep_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
 
 def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     """One full sweep (every phase) on ``x``, in place; returns ``x``."""
+    if sw.role in PROBE_MODES:
+        raise ValueError(f"role {sw.role!r} is a timing probe: sweep_probe runs it")
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         return block_oneshot_sweep_plain(sw, x, x_lag, b)
     dev, dt, kdt = sw.kT.device, sw.A.vals.dtype, sw.kT.dtype
@@ -345,11 +399,78 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     return x
 
 
+# The timing-only variants of the storage-order chain (the reference's
+# scripts/ksweepprobe.py make_sweep_variant), by role: the kernel's
+# compile-time mode.  Only "probe_base" computes the sweep; the others
+# compute other functions and never reach a solve.
+PROBE_MODES = {"probe_base": 0, "probe_hoist": 1, "probe_nodot": 2,
+               "probe_nogather": 3}
+PROBE_GROUP = 8  # blocks per "probe_hoist" group (the reference's MB)
+
+
+def sweep_probe_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
+    """Plain version of each probe mode, on ``x`` in place: "probe_base"
+    the storage-order sweep; "probe_nodot" x_blk += t block by block;
+    "probe_nogather" x_blk += K (b - lag_col x_lag) for every block at
+    once (nothing reads x); "probe_hoist" per group of ``PROBE_GROUP``
+    consecutive entries of ``sw.order``, every row gathers from x as the
+    group began, then each block adds K t."""
+    mode = sw.role
+    if mode not in PROBE_MODES:
+        raise ValueError(f"{mode!r} is not a probe role")
+    ids = sw.order
+    if mode == "probe_base":
+        return block_oneshot_sweep_plain(sw, x, x_lag, b)
+    if mode == "probe_nogather":
+        _oneshot_update(sw, x, x_lag, b, ids, gather=False)
+    elif mode == "probe_hoist":
+        for g in range(0, ids.shape[0], PROBE_GROUP):
+            _oneshot_update(sw, x, x_lag, b, ids[g:g + PROBE_GROUP])
+    else:
+        for j in range(ids.shape[0]):
+            _oneshot_update(sw, x, x_lag, b, ids[j:j + 1], dot=False)
+    return x
+
+
+def sweep_probe(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
+    """One launch of a probe mode (``sw.role``) of ``block_oneshot_sweep``:
+    f32, one serial phase over every block (``sw.order``), one CTA; ``x``
+    in place.
+    Timing only: the modes other than "probe_base" compute other
+    functions."""
+    nb = sw.A.nrows_pad // LANES
+    if sw.role not in PROBE_MODES:
+        raise ValueError(f"{sw.role!r} is not a probe role")
+    if not sw.serial or sw.phase_ptr != (0, nb):
+        raise ValueError("the sweep probes walk one storage-order phase")
+    if x.device.type == "cpu" and sw.kT.device.type == "cpu":
+        return sweep_probe_plain(sw, x, x_lag, b)
+    dev, f32 = sw.kT.device, torch.float32
+    if dev.type != "cuda" or sw.A.vals.dtype != f32 or sw.kT.dtype != f32:
+        raise ValueError(f"sweep_probe takes f32 CUDA tensors, got {sw.A.vals.dtype} "
+                         f"with {sw.kT.dtype} K on {dev}")
+    _check("kT", sw.kT, dev, f32, (nb, LANES, LANES))
+    _check("vals", sw.A.vals, dev, f32)
+    _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
+    _check("lagc", sw.lagc, dev, f32, (sw.A.nrows_pad,))
+    _check("order", sw.order, dev, torch.int32, (nb,))
+    _check("x", x, dev, f32, (sw.A.nrows_pad,))
+    _check("b", b, dev, f32, (sw.A.nrows_pad,))
+    xl = torch.as_tensor(x_lag, dtype=f32, device=dev).reshape(())
+    rc = _load().mmp_sweep_probe_f32(
+        sw.A.vals.data_ptr(), sw.A.cols.data_ptr(), sw.A.width, b.data_ptr(),
+        sw.lagc.data_ptr(), xl.data_ptr(), sw.kT.data_ptr(), sw.order.data_ptr(),
+        nb, PROBE_MODES[sw.role], x.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, "block_oneshot_sweep probe")
+    COUNTS[sw.role] += 1
+    return x
+
+
 # ---------------------------------------------------------------------------
 # class_sor_sweep
 # ---------------------------------------------------------------------------
 
-CLASS_SWEEP_ROLES = ("sweep2", "sweep4")
+CLASS_SWEEP_ROLES = ("sweep2", "sweep4", "sweep1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -365,7 +486,9 @@ class ClassSweep:
     omega: torch.Tensor  # per-row omega (omega * omega_scale)
     lagc: torch.Tensor  # Lagrange column
     class_size: int
-    role: str  # "sweep2" (v2-fallback levels) or "sweep4" (probes.ktime)
+    # "sweep2" (v2-fallback levels), "sweep4" (probes.ktime) or "sweep1"
+    # (probes.kexp)
+    role: str
 
 
 def class_sweep(A: DeviceEll, diag, mask, omega, lagc, class_size: int = 8,
@@ -725,6 +848,51 @@ def color_blocks(pids: np.ndarray, nb: int) -> np.ndarray:
             c += 1
         colors[b] = c
     return colors
+
+
+COLORED_MIN_BLOCKS = 32  # below this the colored sweep loses to the chain
+COLORED_MB = (8, 4, 2)  # blocks per program, in the order they are tried
+COLORED_MAX_EXPAND = 2.0  # duplicate-padding expansion bound
+COLORED_MAX_SLOTS = 96  # scratch slots of a program, first tier
+COLORED_MAX_SLOTS_WIDE = 256  # second tier (i16 slot packing)
+
+
+def colored_refusal(pids: np.ndarray, nb: int, colors: np.ndarray) -> str | None:
+    """Why the reference's colored sweep would refuse this level, or None.
+
+    Mirrors ops/kernels8.py ``prepare_colored_sweep`` on the single-segment
+    v6 layout (``prepare_kernel_ell6``'s default): fewer than 32 blocks;
+    otherwise for each ``mb`` of 8, 4, 2, the colors' block lists padded to
+    whole programs of ``mb`` blocks (``_color_chunks``) must not expand the
+    block count past 2.0, and a program's scratch, ``mb`` own slots plus
+    the patches its blocks read outside it rounded up to 8, must fit 96
+    slots; failing that, any ``mb`` within 256 slots (the wide tier).
+    The block order and the math are the port's own either way: this only
+    decides whether the level runs colored ("v8-colored") or in storage
+    order ("v7-exact"/"v6-oneshot"), as the reference does.  At ``mb`` 2 a
+    color pads by at most one block, so the expansion alone never refuses.
+    """
+    if nb < COLORED_MIN_BLOCKS:
+        return f"colored sweep loses below {COLORED_MIN_BLOCKS} blocks (nb={nb})"
+    pids = np.asarray(pids).reshape(nb, -1)
+    by_color = [np.flatnonzero(colors == c) for c in range(int(colors.max()) + 1)]
+    why, wide = None, False
+    for mb in COLORED_MB:
+        order = np.concatenate([np.concatenate([b, np.repeat(b[-1], -b.size % mb)])
+                                for b in by_color])
+        if order.size / nb > COLORED_MAX_EXPAND:
+            why = f"expansion {order.size / nb:.2f} > {COLORED_MAX_EXPAND} at mb={mb}"
+            continue
+        max_others = 0
+        for prog in order.reshape(-1, mb):
+            u = np.unique(pids[prog])
+            max_others = max(max_others, int((~np.isin(u, prog)).sum()))
+        g8max = -(-(mb + -(-max(max_others, 1) // 8) * 8) // 8) * 8
+        if g8max <= COLORED_MAX_SLOTS:
+            return None
+        wide = wide or g8max <= COLORED_MAX_SLOTS_WIDE
+        why = f"{g8max} scratch slots > {COLORED_MAX_SLOTS} at mb={mb}"
+    return None if wide else why
 
 
 def colored_order(colors: np.ndarray) -> tuple[np.ndarray, tuple]:

@@ -1,0 +1,147 @@
+"""Cost attribution of the storage-order one-shot sweep (card only).
+
+    python -m meshlessmultigridpoisson_torch.probes.ksweepprobe [iters]
+
+Port of the reference package's ``scripts/ksweepprobe.py``.  One step of
+the storage-order chain (``block_oneshot_sweep`` on one CTA: gather and
+row sums of a 128-row block, barrier, the 128 x 128 K product, barrier)
+is split by timing variants of the kernel (``gpu_kernels.sweep_probe``),
+each of which drops one part:
+
+* ``probe_base``: the production chain (``sweep6``'s code), the reference;
+* ``probe_nogather``: no gather and row sum, t = b - lag_col * x_lag;
+* ``probe_nodot``: no K product, x_blk += t (on A / 128, so that the
+  chain stays finite);
+* ``probe_hoist``: the blocks of each group of 8 consecutive blocks all
+  gather x as it stood when the group began, so the group's gathers are
+  issued at once and none waits on an update of its group.  This is the
+  port's own definition of the reference's "stale x loads" variant, whose
+  output depends on the TPU's patch-table layout.
+
+Only ``probe_base`` computes the sweep; the others are timing only and
+never reach a solve.  The operator is the kernel bench's
+(``bench.build_operator()``: 1,048,576 rows, k 70, band 512, 8,192 blocks,
+one-shot K at omega 1.4, the reference's ``scripts/kcache.py build``
+operator); x from seed 1, b from seed 2, no Lagrange column, x_lag 0.
+Each mode is held against its plain version (``gpu_kernels.
+sweep_probe_plain``) on the same inputs (``TOL``, relative to max |plain
+output|), then timed: ``iters`` sweeps chained in place from x, between
+CUDA events (``utils.profiling.chain_time``, each run from a fresh copy
+of x), the median of three runs.  Each line gives ms per sweep, us per
+block, the bound of the mode's own work (``profiling.probe_bytes`` /
+``probe_flops``) and the plain version's ms; the JSON line that ends the
+output splits ``probe_base``'s time per block into the gather
+(base - nogather) and the K product (base - nodot), and gives
+``probe_hoist``'s time per block beside base's.  Base minus hoist is not
+the wait of x loads on the chain: hoist runs another loop (a group's
+1,024 row gathers, then its 8 K products) with costs of its own that no
+mode separates, so that wait stays unmeasured.
+Without a card it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+ITERS = 5
+MODES = ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")
+# kernel vs plain, relative to max |plain output|: the 128-term K product
+# and the ~70-term row sums in another order (f32)
+TOL = 1e-4
+# probe_nodot runs on A / 128 (a power of two: the same digits): with A
+# itself, x_blk += b - A x multiplies x by ~70 on every row and carries it
+# down the chain, and one sweep overflows f32; the kernel's work is the same
+NODOT_SCALE = 128.0
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def probe_sweep(op: dict, role: str, device, dtype=torch.float32):
+    """A ``BlockSweep`` of probe role ``role`` over the bench operator
+    ``op`` (``bench.build_operator``): storage order, no Lagrange column;
+    ``probe_nodot`` on A / ``NODOT_SCALE``."""
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+
+    ell = op["ell"]
+    nb = ell.nrows_pad // gk.LANES
+    A = gk.device_ell(ell, dtype, device, "spmv6")
+    if role == "probe_nodot":
+        A = dataclasses.replace(A, vals=A.vals / NODOT_SCALE)
+    return gk.BlockSweep(
+        A=A,
+        kT=torch.from_numpy(op["kT"]).to(device=device, dtype=dtype),
+        lagc=torch.zeros(ell.nrows_pad, dtype=dtype, device=device),
+        order=torch.arange(nb, dtype=torch.int32, device=device),
+        phase_ptr=(0, nb), serial=True, role=role)
+
+
+def run(iters: int = ITERS, seed: int = 0, op: dict | None = None) -> dict:
+    """Build, check and time; returns the result line as a dict.  ``op``:
+    ``bench.build_operator()``'s output, built by the caller."""
+    if not torch.cuda.is_available():
+        raise SystemExit("the sweep probe times on the card: "
+                         "torch.cuda.is_available() is False")
+    from meshlessmultigridpoisson_torch import bench
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+    from meshlessmultigridpoisson_torch.utils import profiling as pf
+
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    info = pf.card()
+    log(f"card {info['name']}, power limit {info['power_limit']}")
+    t0 = time.perf_counter()
+    op = bench.build_operator(seed=seed) if op is None else op
+    setup_s = time.perf_counter() - t0
+    n_pad = op["ell"].nrows_pad
+    nb = n_pad // gk.LANES
+    log(f"host setup {setup_s:.1f} s: {n_pad} rows, {nb} blocks")
+    x0 = torch.from_numpy(np.random.default_rng(1).standard_normal(n_pad)).to(dev, f32)
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(n_pad)).to(dev, f32)
+    zl = torch.zeros((), dtype=f32, device=dev)
+    rows = {}
+    for role in MODES:
+        sw = probe_sweep(op, role, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = gk.sweep_probe_plain(sw, x0.clone(), zl, b)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        out = gk.sweep_probe(sw, x0.clone(), zl, b)
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        if not err <= TOL * scale:
+            raise AssertionError(f"{role}: kernel vs plain {err / scale:.3e} > {TOL:.0e}")
+        del out, ref
+        ms = pf.chain_time(lambda v: gk.sweep_probe(sw, v, zl, b), x0, k=iters, reps=3,
+                           restart=True) * 1e3
+        b_ms, by = pf.bound_ms(pf.probe_bytes(sw), pf.probe_flops(sw), f32, info["name"])
+        rows[role] = dict(role=role, ms=ms, us_per_block=ms * 1e3 / nb, plain_ms=plain_ms,
+                          max_abs_err=err, rel_err=err / scale, bound_ms=b_ms,
+                          bound_by=by, pct_of_bound=100.0 * b_ms / ms, library_ms=None)
+        log(f"  {role:<16s} {ms:.4f} ms/sweep  {ms * 1e3 / nb:.3f} us/block  bound "
+            f"{b_ms:.4f} ms ({by})  plain {plain_ms:.1f} ms  rel err {err / scale:.2e}")
+        del sw
+    us = {r: rows[r]["us_per_block"] for r in MODES}
+    split = {"gather_us": us["probe_base"] - us["probe_nogather"],
+             "k_product_us": us["probe_base"] - us["probe_nodot"],
+             "base_us": us["probe_base"], "hoist_us": us["probe_hoist"]}
+    log("per block: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return {"probe": "ksweepprobe", "n": n_pad, "blocks": nb, "iters": iters,
+            "seed": seed, "card": info["name"], "power_limit": info["power_limit"],
+            "host_setup_s": setup_s, "kernels": rows, "split_per_block": split}
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    print(json.dumps(run(int(argv[0]) if argv else ITERS)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -55,25 +55,29 @@ def bound_ms(nbytes: float, flops: float, dtype, name: str) -> tuple[float, str]
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def chain_time(op, x0: torch.Tensor, *sa, k: int = 16, reps: int = 5) -> float:
+def chain_time(op, x0: torch.Tensor, *sa, k: int = 16, reps: int = 5,
+               restart: bool = False) -> float:
     """Median seconds per application of ``op(x0, *sa)`` on the card.
 
     One warm-up call, then per repetition ``k`` back-to-back applications
     to the same input between two CUDA events on the current stream; the
-    median over ``reps`` of the elapsed time over ``k``.
+    median over ``reps`` of the elapsed time over ``k``.  ``restart``: for
+    an ``op`` that works in place, the warm-up and each repetition start
+    from a fresh copy of ``x0``, made before the first event.
     """
     if not isinstance(x0, torch.Tensor) or x0.device.type != "cuda":
         raise ValueError("chain_time times on the card: it takes a CUDA tensor "
                          f"(got {getattr(x0, 'device', type(x0))})")
-    op(x0, *sa)
+    op(x0.clone() if restart else x0, *sa)
     torch.cuda.synchronize(x0.device)
     ts = []
     for _ in range(reps):
+        x = x0.clone() if restart else x0
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         for _ in range(k):
-            op(x0, *sa)
+            op(x, *sa)
         e1.record()
         e1.synchronize()
         ts.append(e0.elapsed_time(e1) / 1e3 / k)
@@ -125,6 +129,22 @@ def sweep_flops(sw) -> int:
     if isinstance(sw, ClassSweep):
         return 2 * _nnz(sw.A.vals) + CLASS_UPDATE_FLOPS * sw.A.nrows_pad
     return 2 * _nnz(sw.A.vals) + 2 * _nnz(sw.kT)
+
+
+def probe_bytes(sw) -> int:
+    """Bytes one sweep of a sweep-probe mode (``sw.role``) needs:
+    ``probe_base`` and ``probe_hoist`` as ``sweep_bytes``; ``probe_nodot``
+    reads no K, ``probe_nogather`` no A (neither values nor columns)."""
+    es = sw.A.vals.element_size()
+    a = _nnz(sw.A.vals) * (es + 4)
+    k = _nnz(sw.kT) * sw.kT.element_size()
+    vecs = sw.lagc.nbytes + sw.order.nbytes + 3 * sw.A.nrows_pad * es
+    return {"probe_nodot": a, "probe_nogather": k}.get(sw.role, a + k) + vecs
+
+
+def probe_flops(sw) -> int:
+    a, k = 2 * _nnz(sw.A.vals), 2 * _nnz(sw.kT)
+    return {"probe_nodot": a, "probe_nogather": k}.get(sw.role, a + k)
 
 
 def compact_bytes(C) -> int:

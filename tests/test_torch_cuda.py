@@ -401,3 +401,83 @@ def test_ktime_probe_on_card():
                                    "spmv v2 (br=256)", "sweep v2 (br=256)",
                                    "spmv v4", "sweep v4", "sweep v5"}
     assert all(0 < r["bound_ms"] <= 1.05 * r["ms"] for r in res["kernels"].values())
+
+
+@pytest.mark.parametrize("role", ["spmv1", "spmv3"])
+def test_kexp_spmv_roles_count_and_match_plain(et, role):
+    """Kernels 8 and 10 are roles of ``ell_spmv``: one launch counted under
+    the role, the SpMV's tolerance."""
+    A = gk.device_ell(et, torch.float32, "cuda", role)
+    x = _rand(et.ncols, torch.float32, 21)
+    before = dict(gk.COUNTS)
+    y = gk.ell_spmv(A, x)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        role: 1}
+    yp = gk.ell_spmv_plain(A.vals, A.cols, x)
+    assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_sweep1_role_counts_and_matches_plain(et, dtype, tol):
+    """Kernel 9 is a role of ``class_sor_sweep`` on the unpermuted real
+    pattern (rows of one tile couple)."""
+    from dataclasses import replace
+
+    sw = replace(_class_sweep("real", dtype, et), role="sweep1")
+    n = sw.A.nrows_pad
+    x, b = _rand(n, dtype, 22), _rand(n, dtype, 23)
+    xl = torch.tensor(0.3, dtype=dtype, device="cuda")
+    before = dict(gk.COUNTS)
+    out = gk.class_sor_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        "sweep1": 1}
+    ref = gk.class_sor_sweep_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("mode", sorted(gk.PROBE_MODES))
+def test_sweep_probe_modes_count_and_match_plain(mode):
+    """Each timing mode of ``block_oneshot_sweep`` against its plain version
+    on the bench operator at 16,384 rows (128 blocks, 16 hoisted groups);
+    ``probe_base`` is the production chain."""
+    from meshlessmultigridpoisson_torch import bench
+    from meshlessmultigridpoisson_torch.probes import ksweepprobe
+
+    op = bench.build_operator(n=16384)
+    sw = ksweepprobe.probe_sweep(op, mode, "cuda")
+    x, b = _rand(16384, torch.float32, 24), _rand(16384, torch.float32, 25)
+    xl = torch.tensor(0.0, device="cuda")
+    before = dict(gk.COUNTS)
+    out = gk.sweep_probe(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        mode: 1}
+    ref = gk.sweep_probe_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    if mode == "probe_base":
+        from dataclasses import replace
+
+        prod = gk.block_oneshot_sweep(replace(sw, role="sweep6"), x.clone(), xl, b)
+        assert torch.equal(prod, out)
+
+
+def test_kexp_and_ksweepprobe_on_card():
+    """Both probes at a small size: every role launched, each kernel held
+    against its plain version inside the probe, times at or above bound."""
+    from meshlessmultigridpoisson_torch import bench
+    from meshlessmultigridpoisson_torch.probes import kexp, ksweepprobe
+
+    op = bench.build_operator(n=16384)
+    gk.reset_counts()
+    res = kexp.run(n=16384, iters=2, a=op["a"])
+    assert all(gk.COUNTS[r] > 0 for r in ("spmv1", "spmv2", "spmv3", "sweep1"))
+    assert len(res["kernels"]) == 7 and set(res["blocks"]) == {128, 256}
+    gk.reset_counts()
+    res2 = ksweepprobe.run(iters=2, op=op)
+    assert all(gk.COUNTS[r] > 0 for r in gk.PROBE_MODES)
+    assert set(res2["split_per_block"]) == {"gather_us", "k_product_us", "base_us",
+                                            "hoist_us"}
+    for r in [*res["kernels"].values(), *res2["kernels"].values()]:
+        assert 0 < r["bound_ms"] <= 1.05 * r["ms"]

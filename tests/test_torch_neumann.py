@@ -13,12 +13,18 @@ so kernel and level cases compare the same matrices.
   ``tpu_backend.smooth`` in interpret mode, on the fine v8-colored level and
   the coarsest v7-exact level, with non-zero ``x_lag`` and ``b_lag``;
 * (c) the port's ``solve --device cpu --neumann`` against the reference
-  CLI's CPU ``solve --solver bicgstab --neumann``.
+  CLI's CPU ``solve --solver bicgstab --neumann``;
+* (d) on the two-level cut 600/2500 of the same slice, the first outer
+  pass's f32 inner BiCGStab (tol 1e-5, cap 60): the port's over its plain
+  kernels against the reference's ``mg/krylov.solve_bicgstab`` over the
+  same operators in f32, and ``solve_mixed_stepped``'s ``matvec64`` /
+  ``matvec32`` hooks.
 
 Tolerances: f32 against the interpret-mode kernels 3e-4 x max |output|, the
 reference's own bound for its kernels (measured: ~1e-7 for (a), ~4e-7 for
 (b)); (c) both residuals < 1e-10, L1 errors within 5%, gauge-fixed
-solutions within 1e-6 relative L1.
+solutions within 1e-6 relative L1; (d) iteration counts within 2 (f32
+rounding in another order), both runs below the cap.
 """
 
 import argparse
@@ -215,3 +221,107 @@ def test_slice_cpu_neumann_solve_matches_reference_cli(reference_solve):
     recheck = chip_smoke.bordered_residual(op, b, bl, x_t, xl_t)
     assert recheck < 1e-10, recheck
     assert chip_smoke.bordered_residual(op, b, bl, x_t, xl_t + 1e-3) > 10 * recheck
+
+
+# ---------------------------------------------------------------------------
+# (d): the inner solve on the two-level cut, and the stepped solve's hooks
+# ---------------------------------------------------------------------------
+
+INNER_TOL, INNER_CAP = 1e-5, 60
+
+
+@pytest.fixture(scope="module")
+def two_level():
+    """(reference problem, port host hierarchy, port f64 fine operator, port
+    defect hierarchy) on the 600/2500 cut, the operators shared through
+    ``interop``."""
+    from meshlessmultigridpoisson_tpu.models.poisson import make_poisson_problem as jmake
+
+    from meshlessmultigridpoisson_torch.mg import mixed
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pj = jmake(SLICE["geom"], sizes=SLICE["sizes"][:2], poly_deg=SLICE["deg"],
+                   ordering=SLICE["ordering"], block_rows=SLICE["block_rows"],
+                   neumann=True)
+    ht = interop.hierarchy_from_numpy(_numpy_tree(pj.hierarchy))
+    op64 = gpu_backend.gpu_level_from_operator(ht.levels[-1], "cpu", torch.float64,
+                                               sweep=False)
+    hd = mixed.defect_hierarchy(gpu_backend.gpu_hierarchy(ht, "cpu"))
+    return pj, ht, op64, hd
+
+
+def test_first_pass_inner_solve_matches_reference_below_the_cap(two_level):
+    """The first pass's inner solve (x0 = 0: r = b) takes as many BiCGStab
+    iterations in both packages and stops at inner_tol, far below the
+    60-iteration cap: on this cut the cap is no fault of the port.  The
+    reference runs its XLA f32 path (the storage-order GS that its
+    ``sor_sweep_tpu7`` computes: both levels are "v7-exact"), since its
+    interpret-mode kernels compile the jitted solve for many minutes here."""
+    from meshlessmultigridpoisson_tpu.mg import mixed as jmixed
+    from meshlessmultigridpoisson_tpu.mg.krylov import solve_bicgstab as jbicgstab
+    from meshlessmultigridpoisson_tpu.mg.vcycle import init_like as jinit
+
+    from meshlessmultigridpoisson_torch.mg import mixed
+
+    pj, ht, op64, hd = two_level
+    assert [lv.kernel_kind for lv in hd.levels] == ["v7-exact", "v7-exact"]
+    hj = pj.hierarchy
+    h32 = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float32) if a.dtype == jnp.float64 else a, hj)
+    fj = hj.levels[-1]
+    b = jnp.where(fj.dirichlet_mask > 0, fj.dirichlet_values, pj.state0.b[-1])
+    r, rl = b, jnp.asarray(pj.state0.b_lag[-1], jnp.float64)
+    rn = float(jnp.sum(jnp.abs(r)) + jnp.abs(rl))
+    hdj = jmixed.defect_hierarchy(h32)
+    st = jinit(hdj).replace_level(1, b=(r / rn).astype(jnp.float32),
+                                  b_lag=(rl / rn).astype(jnp.float32))
+    _, its_j, res_j = jbicgstab(hdj, st, tol=INNER_TOL, max_iters=INNER_CAP)
+    its_j, res_j = int(its_j), float(res_j)
+    _, _, its_t, res_t = mixed._inner(hd, torch.from_numpy(np.asarray(r)),
+                                      torch.tensor(float(rl), dtype=torch.float64),
+                                      INNER_TOL, INNER_CAP)
+    assert 0 < res_j < INNER_TOL and 0 < res_t < INNER_TOL
+    assert its_j < INNER_CAP // 2 and its_t < INNER_CAP // 2
+    assert abs(its_t - its_j) <= 2, (its_t, its_j)
+
+
+def test_solve_mixed_stepped_hooks(two_level, monkeypatch):
+    """``matvec64`` / ``matvec32`` set to the default operators give the
+    hook-less solve; the f64 hook runs once before the loop and once per
+    outer pass, the f32 hook once per inner solve and twice per BiCGStab
+    iteration."""
+    from meshlessmultigridpoisson_torch.mg import mixed
+    from meshlessmultigridpoisson_torch.mg.krylov import full_matvec
+
+    pj, ht, op64, hd = two_level
+    b = torch.from_numpy(np.asarray(pj.state0.b[-1]))
+    bl = float(pj.state0.b_lag[-1])
+    x0 = torch.zeros(op64.n_pad, dtype=torch.float64)
+    xl0 = torch.zeros((), dtype=torch.float64)
+    args = (op64, hd, x0, xl0, b, bl)
+    plain = mixed.solve_mixed_stepped(*args, tol=1e-10)
+    calls = {"64": 0, "32": 0}
+    inner_its = []
+
+    def mv64(x, xl):
+        calls["64"] += 1
+        return gpu_backend.matvec(op64, x, xl)
+
+    def mv32(x, xl):
+        calls["32"] += 1
+        return full_matvec(hd.levels[-1], x, xl)
+
+    orig = mixed.solve_bicgstab
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        inner_its.append(out[1])
+        return out
+
+    monkeypatch.setattr(mixed, "solve_bicgstab", spy)
+    hooked = mixed.solve_mixed_stepped(*args, tol=1e-10, matvec64=mv64, matvec32=mv32)
+    assert plain[2] == hooked[2] >= 2 and plain[3] == hooked[3] < 1e-10
+    assert torch.equal(plain[0], hooked[0]) and torch.equal(plain[1], hooked[1])
+    assert calls["64"] == 1 + hooked[2] == 1 + len(inner_its)
+    assert calls["32"] == sum(1 + 2 * i for i in inner_its)

@@ -19,7 +19,8 @@ against the reference package, on the CPU.
 * (d) ``v6_supported`` raises and accepts as ``prepare_kernel_ell6`` does,
   and the level kinds and transfer roles follow ``tpu_level_from_operator``
   / ``tpu_hierarchy`` (``use_v6=None``) on operators whose 128-row block
-  reads 256 or 257 x patches.
+  reads 256 or 257 x patches; under the colored sweep order the kinds
+  follow ``prepare_colored_sweep``'s refusals (``colored_refusal``).
 * (e) The port's CPU solve with ``use_v6=False`` on the small Dirichlet
   slice (600/2500/5000) against the reference CLI's CPU solve.
 
@@ -370,6 +371,80 @@ def test_level_kind_and_transfer_role_follow_tpu_backend(patches):
     assert v2_warned == [refused, refused]
     assert isinstance(th.restrict[0], K6.KernelEll6) is not refused
     assert gh.restrict[0].role == ("spmv2" if refused else "spmv6")
+
+
+def _clique_csr(clique: int, wide: int):
+    """[N_WIDE, N_WIDE]: the tridiagonal band of ``_wide_csr``; the first
+    128 rows also read x patches 1 .. ``wide`` - 1 (``wide`` 0: none), and
+    each of the first ``clique`` blocks reads every other of them (entries
+    0.01), so those blocks take ``clique`` colors of one block each."""
+    n = N_WIDE
+    r = np.arange(n)
+    lo, hi = r[r > 0], r[r < n - 1]
+    p = np.arange(1, max(wide, 1))
+    i, j = np.meshgrid(np.arange(clique), np.arange(clique), indexing="ij")
+    i, j = i[i != j], j[i != j]
+    ri = np.concatenate([r, lo, hi, (p - 1) % 128, i * 128 + j % 128])
+    ci = np.concatenate([r, lo - 1, hi + 1, p * 128 + (p - 1) % 128,
+                         j * 128 + (j + 1) % 128])
+    vi = np.concatenate([np.full(n, 4.0), np.full(lo.size + hi.size, -1.0),
+                         np.full(p.size + i.size, 0.01)])
+    a = sp.coo_matrix((vi, (ri, ci)), shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    return a
+
+
+@pytest.mark.parametrize("clique,wide,kind,why", [
+    (0, 256, "v6-oneshot", "264 scratch slots > 96 at mb=2"),
+    (100, 256, "v6-oneshot", "264 scratch slots > 96 at mb=2"),
+    (100, 0, "v8-colored", None),
+], ids=["slots", "expansion-then-slots", "wide-tier"])
+def test_colored_kind_follows_prepare_colored_sweep(clique, wide, kind, why):
+    """``sweep_order="colored"`` on 264-block levels: where the reference's
+    ``prepare_colored_sweep`` refuses (every mb past 256 slots; or mb 8 and
+    4 past the 2.0 expansion, then mb 2 past the slots), both packages run
+    the storage-order sweep and name the same kind; where only the wide
+    tier fits (mb 2 at 112 slots), both run colored.  The refused levels'
+    smooth is held against the reference's own storage-order GS
+    (``ops/smoothers.smooth`` on the LevelOperator: the function
+    ``sor_sweep_tpu6`` computes, whose interpret mode at 256 patches a block
+    takes minutes here); the colored order gives another iterate there."""
+    from meshlessmultigridpoisson_tpu.ops import smoothers as jsm
+
+    a = _clique_csr(clique, wide)
+    lj = _level(jell.ell_from_csr(a, block_rows=128), N_WIDE)
+    assert tb.tpu_level_from_operator(lj).kernel_kind == kind
+    lt = interop.hierarchy_from_numpy(_numpy_tree(
+        JHierarchy(levels=(lj,), restrict=(), prolong=()))).levels[0]
+    gl = gpu_backend.gpu_level_from_operator(lt, "cpu")
+    assert gl.kernel_kind == kind
+    assert gl.A.role == ("spmv8" if kind == "v8-colored" else "spmv6")
+    nb = N_WIDE // 128
+    pids = gk.block_patches(tell.global_cols(lt.A).numpy(), nb)
+    colors = gk.color_blocks(pids, nb)
+    assert gk.colored_refusal(pids, nb, colors) == why
+    counts = np.bincount(colors)
+    expansion = {mb: (-(-counts // mb) * mb).sum() / nb for mb in (8, 4, 2)}
+    # 98 one-block colors: mb 8 and 4 expand past 2.0, mb 2 never can
+    assert bool(expansion[4] > 2.0) == bool(clique) and expansion[2] <= 2.0
+    if kind == "v8-colored":
+        return
+    rng = np.random.default_rng(71)
+    x, b = _f32(rng, N_WIDE), _f32(rng, N_WIDE)
+    rx, _ = jsm.smooth(lj, jnp.asarray(x, jnp.float64), 0.0, jnp.asarray(b, jnp.float64),
+                       0.0, iters=1)
+    rx = np.asarray(rx)
+
+    def smooth(level):
+        return gpu_backend.smooth(level, torch.from_numpy(x), torch.tensor(0.0),
+                                  torch.from_numpy(b), torch.tensor(0.0), iters=1)[0].numpy()
+
+    _close(smooth(gl), rx, F32_TOL)
+    order, ptr = gk.colored_order(colors)
+    sw = dataclasses.replace(gl.sweep, order=torch.from_numpy(order.astype(np.int32)),
+                             phase_ptr=ptr, serial=False, role="sweep8")
+    colored = smooth(dataclasses.replace(gl, sweep=sw))
+    assert np.abs(colored - rx).max() > 30 * F32_TOL * np.abs(rx).max()
 
 
 # ---------------------------------------------------------------------------
