@@ -8,7 +8,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; no phase swallows its own failure):
 
 1. print the card (``nvidia-smi`` name and power limit), build the CUDA
-   kernel library from the package's ``csrc/*.cu`` and print the build time;
+   kernel library from the package's ``csrc/*.cu`` and print the build time
+   and each instance's registers; check in the library's code
+   (``cuobjdump -sass``, ``probes.sassloads``) that the f32i16 stream
+   instance keeps a 64-bit load of its i16 table for every 128-bit load of
+   its f32 table (whole i16 table read);
 2. build the slice's hierarchies (square_with_circle, deg 6, kd-tile
    ordering, 512-row assembly blocks, sizes 2500/10000/35000/150000;
    Dirichlet, then Neumann) and hold every kernel against its plain PyTorch
@@ -29,7 +33,11 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    version's time, the kernel's bound (bytes over 3.35 TB/s or operations
    over the arithmetic peak, utils/profiling.py) and, for the SpMV and
    compact-row roles, the time of a ``torch.sparse`` CSR matvec over the
-   same rows (a yardstick the port never calls);
+   same rows (a yardstick the port never calls).  Times are chains of
+   launches between CUDA events; where the kernel's is below 0.05 ms (the
+   host's enqueue rate, not the device's time) the device time per call
+   of the kernel and of the library call is read from ``torch.profiler``
+   too (``utils.profiling.device_ms``) and printed beside them;
 3. run the port's ``solve`` entry point in-process (one untimed outer pass,
    then the timed solve; launch counters set to 0 before each run and read
    after it), print each SolveRecord, and check: Dirichlet, then on the
@@ -79,7 +87,21 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    against its plain version before timing it): ``spmv2`` and ``sweep2``
    at 128- and 256-row blocks, ``spmv4``, ``sweep4`` and ``sweep5``, each
    launched, each at or above its bound;
-8. print a JSON line of per-kernel results, the total time, then, as the
+8. the stream probes and the SpMV's gather/reduction split, each
+   in-process at the reference's sizes with its counts set to 0 before and
+   read after: ``probes.kstream`` (the four table mixes over [2^18, 128]
+   at 1024-4096 tile rows, 8192 for ``f32``; roles ``kstream_*``),
+   ``probes.kprobe`` (the f32 + i32 stream over [2^19, 128] at 64-4096
+   tile rows, role ``kprobe_stream``; then the four SpMV modes on
+   ``synthetic_banded_csr(262144, 70, 512)``, roles ``spmvp_*``) and
+   ``probes.chaintime`` (the stream at 256-4096 tile rows as the delta of
+   9 and 1 passes, role ``chain_stream``, and its matmul and elementwise
+   calibrations); each probe holds every kernel against its plain version
+   before timing it (streams exactly, SpMV modes within 1e-5 of max
+   |plain|), and the phase checks every role launched, each row's error
+   within that tolerance and each row at or above its bound; prints the
+   SpMV's split into gather and reduction;
+9. print a JSON line of per-kernel results, the total time, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package next to it, it exits with a
@@ -146,6 +168,19 @@ ROLES = {
            "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
            "scripts/ksweepprobe.py:110")
        for m in ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")},
+    **{f"kstream_{m}": ("stream_ceiling",
+                        "meshlessmultigridpoisson_torch/csrc/stream_ceiling.cu",
+                        "scripts/kstream.py:61")
+       for m in ("f32i32", "f32f32", "f32", "f32i16")},
+    "kprobe_stream": ("stream_ceiling",
+                      "meshlessmultigridpoisson_torch/csrc/stream_ceiling.cu",
+                      "scripts/kprobe.py:54"),
+    **{m: ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+           "scripts/kprobe.py:138")
+       for m in ("spmvp_base", "spmvp_nogather", "spmvp_noreduce", "spmvp_neither")},
+    "chain_stream": ("stream_ceiling",
+                     "meshlessmultigridpoisson_torch/csrc/stream_ceiling.cu",
+                     "scripts/chaintime.py:104"),
 }
 DIRICHLET_ROLES = ("spmv6", "spmv8", "sweep7", "sweep8")
 EXACT_ROLES = ("spmv6", "sweep6", "sweep7")
@@ -160,6 +195,12 @@ KEXP_ROLES = ("spmv1", "spmv2", "spmv3", "sweep1")
 SWEEPPROBE_ITERS = 3
 SWEEPPROBE_ROLES = ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")
 NEUMANN_ROLES = DIRICHLET_ROLES + ("bound2", "push2")
+# the stream probes and the SpMV split (reference sizes, each probe's own)
+KSTREAM_ROLES = ("kstream_f32i32", "kstream_f32f32", "kstream_f32", "kstream_f32i16")
+KPROBE_ITERS = 20
+KPROBE_ROLES = ("kprobe_stream", "spmvp_base", "spmvp_nogather", "spmvp_noreduce",
+                "spmvp_neither")
+CHAIN_ROLES = ("chain_stream",)
 # the NS main path: the reference program's default run at its own width
 # and depth (cli ns defaults), S steps from rest
 NS_SIZES = [170, 600, 2500, 10000]
@@ -272,7 +313,15 @@ def main(argv=None) -> int:
         )
         from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
         from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
-        from meshlessmultigridpoisson_torch.probes import kexp, ksweepprobe, ktime
+        from meshlessmultigridpoisson_torch.probes import (
+            chaintime,
+            kexp,
+            kprobe,
+            ksweepprobe,
+            kstream,
+            ktime,
+            sassloads,
+        )
         from meshlessmultigridpoisson_torch.utils import profiling as pf
     except ImportError as e:
         return fail(f"the port package is not next to this script ({e})")
@@ -292,6 +341,11 @@ def main(argv=None) -> int:
     gk.build(verbose=True)
     gk._load()
     print(f"kernel library built in {time.perf_counter() - t0:.2f} s", flush=True)
+    loads = sassloads.library_loads()
+    i16 = {k: v for k, v in loads.items() if sassloads.I16_INSTANCE in k}
+    print(f"global loads of the f32i16 stream instance: {i16}", flush=True)
+    if not sassloads.i16_loads_live(loads):
+        return fail("the f32i16 stream instance does not load its whole i16 table")
 
     # ---- 2. kernels vs plain on the slice's shapes --------------------------
     geom = dict(geomtype="square_with_circle", sizes=args.sizes, poly_deg=6,
@@ -311,17 +365,23 @@ def main(argv=None) -> int:
     results = {r: [] for r in ROLES}
 
     def record(role, label, tol_key, err, scale, ms, plain_ms, nbytes, flops,
-               dtype, library_ms=None):
+               dtype, library_ms=None, device=None):
+        """``device``: (kernel, library) device ms per call, for a kernel
+        whose chain time is the host's enqueue rate."""
         rel = err / max(scale, 1e-300)
         tol = TOL[tol_key]
         b_ms, by = pf.bound_ms(nbytes, flops, dtype, card_name)
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        dev_t = "" if device is None else (f"  device time: kernel {device[0]:.4f} ms, "
+                                           f"library {device[1]:.4f} ms")
         print(f"  {label:<52s} rel err {rel:.3e} (tol {tol:.0e})  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
-              f"({by}){lib}", flush=True)
+              f"({by}){lib}{dev_t}", flush=True)
         results[role].append(dict(label=label, max_abs_err=err, rel_err=rel,
                                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=by, library_ms=library_ms))
+                                  bound_by=by, library_ms=library_ms,
+                                  device_ms=None if device is None else device[0],
+                                  library_device_ms=None if device is None else device[1]))
         if not rel <= tol:
             raise AssertionError(f"{label}: relative error {rel:.3e} > {tol:.0e}")
 
@@ -329,6 +389,13 @@ def main(argv=None) -> int:
         """ms per application of ``op(x)``: k back-to-back calls after a
         warm-up, between CUDA events."""
         return pf.chain_time(op, x, k=k, reps=1) * 1e3
+
+    def device_times(ms, kernel, library, x, k):
+        """(kernel, library) device ms per call from ``torch.profiler``
+        where the chain time ``ms`` is the host's enqueue rate, else None."""
+        if ms >= pf.ENQUEUE_MS:
+            return None
+        return pf.device_ms(kernel, x, k), pf.device_ms(library, x, k)
 
     def dname(dtype):
         return "f32" if dtype == torch.float32 else "f64"
@@ -344,10 +411,11 @@ def main(argv=None) -> int:
         pms = ms_of(lambda v: gk.ell_spmv_plain(A.vals, A.cols, v), x, 10)
         csr = pf.library_csr(A.vals, A.cols, A.ncols)
         lms = ms_of(lambda v: csr @ v, x, 50)
+        dev_ms = device_times(ms, lambda v: gk.ell_spmv(A, v), lambda v: csr @ v, x, 50)
         dt = dname(A.vals.dtype)
         record(role, f"ell_spmv {dt} {label}", ("spmv", dt), err,
                float(yp.abs().max()), ms, pms, pf.spmv_bytes(A), pf.spmv_flops(A),
-               A.vals.dtype, lms)
+               A.vals.dtype, lms, dev_ms)
 
     def check_sweep(label, sw):
         dtype = sw.A.vals.dtype
@@ -470,10 +538,13 @@ def main(argv=None) -> int:
         pms = ms_of(lambda v: gk.compact_rows_plain(C, v, bs), xs, 50)
         csr = pf.library_csr(C.vals, C.cols, C.n_pad)
         lms = ms_of(lambda v: csr @ v, xs, 200)
+        dev_ms = device_times(ms, lambda v: gk.compact_rows(C, v, bs), lambda v: csr @ v,
+                              xs, 200)
         dt = dname(C.vals.dtype)
         record(C.role, f"compact_rows {dt} {label} ({C.nrows} of {C.m_pad} rows, "
                f"width {C.width})", ("compact", dt), err, float(ref.abs().max()),
-               ms, pms, pf.compact_bytes(C), pf.compact_flops(C), C.vals.dtype, lms)
+               ms, pms, pf.compact_bytes(C), pf.compact_flops(C), C.vals.dtype, lms,
+               dev_ms)
 
     t0 = time.perf_counter()
     prob = make_poisson_problem(**geom, neumann=True, device=dev)
@@ -656,9 +727,11 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    def probe_results(name, res, roles):
+    def probe_results(name, res, roles, shape, tol=None):
         """Counts read, every role launched, each time at or above its
-        bound; the probe's rows joined to the kernels line."""
+        bound, each error within ``tol`` (role -> relative tolerance) where
+        given; the probe's rows joined to the kernels line, labelled with
+        ``shape``."""
         print(json.dumps(res), flush=True)
         print(f"launches during the {name} probe: {launches[name]}", flush=True)
         idle = [r for r in roles if launches[name][r] == 0]
@@ -668,8 +741,11 @@ def main(argv=None) -> int:
             if not r["pct_of_bound"] <= PCT_OF_BOUND_MAX:
                 raise AssertionError(f"{name} {label}: time below the bound "
                                      f"({r['pct_of_bound']:.1f}%)")
+            if tol is not None and not r["rel_err"] <= tol[r["role"]]:
+                raise AssertionError(f"{name} {label}: kernel vs plain {r['rel_err']:.3e}"
+                                     f" > {tol[r['role']]:.0e}")
             results[r["role"]].append(dict(
-                label=f"{name} {label}, bench operator {res['n']} rows",
+                label=f"{name} {label}, {shape}",
                 **{k: r[k] for k in ("max_abs_err", "rel_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}))
 
@@ -680,7 +756,7 @@ def main(argv=None) -> int:
     res = kexp.run(bench.N, KEXP_ITERS, a=bench_op["a"])
     torch.cuda.synchronize()
     launches["kexp"] = dict(gk.COUNTS)
-    probe_results("kexp", res, KEXP_ROLES)
+    probe_results("kexp", res, KEXP_ROLES, f"bench operator {res['n']} rows")
     del res
     torch.cuda.empty_cache()
     print("main path (ksweepprobe): python -m meshlessmultigridpoisson_torch.probes."
@@ -689,7 +765,7 @@ def main(argv=None) -> int:
     res = ksweepprobe.run(SWEEPPROBE_ITERS, op=bench_op)
     torch.cuda.synchronize()
     launches["ksweepprobe"] = dict(gk.COUNTS)
-    probe_results("ksweepprobe", res, SWEEPPROBE_ROLES)
+    probe_results("ksweepprobe", res, SWEEPPROBE_ROLES, f"bench operator {res['n']} rows")
     print(f"ksweepprobe: storage-order chain per 128-row block ({card}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res["split_per_block"].items()),
           flush=True)
@@ -718,7 +794,37 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- 8. results ----------------------------------------------------------
+    # ---- 8. the stream probes and the SpMV's gather/reduction split ------------
+    stream_tol = dict.fromkeys(KSTREAM_ROLES + CHAIN_ROLES + ("kprobe_stream",),
+                               TOL[("stream", "f32")])
+    spmv_tol = dict.fromkeys(KPROBE_ROLES[1:], TOL[("spmv", "f32")])
+    for name, run_probe, roles, shape in (
+            ("kstream", kstream.run, KSTREAM_ROLES,
+             f"[{kstream.ROWS}, 128] tables"),
+            ("kprobe", lambda: kprobe.run(kprobe.N, KPROBE_ITERS), KPROBE_ROLES,
+             f"stream [{kprobe.STREAM_ROWS}, 128] f32 + i32, SpMV banded "
+             f"{kprobe.N} x {kprobe.K}"),
+            ("chaintime", chaintime.run, CHAIN_ROLES,
+             f"[{chaintime.ROWS}, 128] f32 + i32, delta of 9 and 1 passes")):
+        print(f"main path ({name}): python -m meshlessmultigridpoisson_torch.probes."
+              f"{name}", flush=True)
+        gk.reset_counts()
+        res = run_probe()
+        torch.cuda.synchronize()
+        launches[name] = dict(gk.COUNTS)
+        probe_results(name, res, roles, shape, {**stream_tol, **spmv_tol})
+        if name == "kprobe":
+            print(f"kprobe: ell_spmv split at {res['n']} x {res['k']} ({card}): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in res["spmv_split"].items()),
+                  flush=True)
+        if name == "chaintime":
+            for label, r in res["calibrations"].items():
+                print(f"chaintime calibration {label} ({card}): {json.dumps(r)}",
+                      flush=True)
+        del res
+        torch.cuda.empty_cache()
+
+    # ---- 9. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
         by_path = {p: n[role] for p, n in launches.items()}
@@ -730,7 +836,9 @@ def main(argv=None) -> int:
                                 max_abs_err=c["max_abs_err"],
                                 ms=c["ms"], plain_ms=c["plain_ms"],
                                 bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                                library_ms=c["library_ms"]))
+                                library_ms=c["library_ms"],
+                                **{k: c[k] for k in ("device_ms", "library_device_ms")
+                                   if c.get(k) is not None}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

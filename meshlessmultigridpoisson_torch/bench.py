@@ -10,7 +10,8 @@ with CUDA events (``utils.profiling.chain_time``).  Beside them:
 
 * ``stream_ceiling`` (the reference's Pallas stream probe, bench.py:118,
   here a CUDA kernel): two [2^18, 128] tables streamed ``reps`` times in
-  one launch; a pass is the delta of 9 and 1 passes over 8;
+  one launch; a pass is the delta of 9 and 1 passes over 8
+  (``probes.kstream.pass_ms``);
 * the torch elementwise stream ``v * 1.0000001`` over the ELL values, the
   independent calibration that no byte model enters (read + write);
 * the plain gather SpMV on 131,072 rows (``vs_baseline``) and the library
@@ -41,7 +42,6 @@ N, K, BAND = 1_048_576, 70, 512
 N_BASE = 131_072  # rows of the plain gather SpMV (per-nnz cost is row-count independent)
 STREAM_ROWS, STREAM_TILE = 1 << 18, 4096  # the reference probe's tables
 OMEGA = 1.4
-STREAM_REPS = 9  # passes of the timed stream probe launch
 # each timed sweep against its plain version on the same inputs, before it
 # is timed: f32 within 1e-4 of max |output| (another summation order under
 # the 128-term K product), bf16 K within 1e-2 of max |dx| (both round t to
@@ -103,6 +103,7 @@ def run(seed: int = 0, op: dict | None = None) -> dict:
         raise SystemExit("the kernel bench times on the card: "
                          "torch.cuda.is_available() is False")
     from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+    from meshlessmultigridpoisson_torch.probes import kstream
     from meshlessmultigridpoisson_torch.utils import profiling as pf
 
     dev = torch.device("cuda", 0)
@@ -139,27 +140,14 @@ def run(seed: int = 0, op: dict | None = None) -> dict:
 
     rows = {}
 
-    # --- stream_ceiling (kernel 14): a pass is the delta of 9 and 1 passes
-    g = torch.Generator(device=dev).manual_seed(seed)
-    sv = torch.randint(0, 4, (STREAM_ROWS, gk.STREAM_COLS), generator=g,
-                       device=dev).to(f32)
-    sc = torch.randint(0, 4, (STREAM_ROWS, gk.STREAM_COLS), generator=g,
-                       device=dev, dtype=torch.int32)
-    s_ref = gk.stream_ceiling_plain(sv, sc, STREAM_TILE)
-    for r in (1, STREAM_REPS):
-        s_err = float((gk.stream_ceiling(sv, sc, STREAM_TILE, r) - s_ref).abs().max())
-        if s_err != 0.0:
-            raise AssertionError(f"stream_ceiling ({r} passes) differs from its "
-                                 f"plain version: {s_err}")
-
-    def passes(reps):
-        return pf.chain_time(lambda _: gk.stream_ceiling(sv, sc, STREAM_TILE, reps),
-                             sv, k=3, reps=5)
-
-    t_stream = (passes(STREAM_REPS) - passes(1)) / (STREAM_REPS - 1)
-    s_bytes = sv.nbytes + sc.nbytes + STREAM_ROWS // STREAM_TILE * 8 * gk.STREAM_COLS * 4
-    rows["stream14"] = _kernel_row("stream_ceiling", t_stream * 1e3, s_bytes,
-                                   2 * sv.numel(), f32, info["name"])
+    # --- stream_ceiling (kernel 14): held against its plain version at 1 and
+    # 9 passes; a pass is the delta of 9 and 1 passes (``kstream.pass_ms``)
+    sv, sc = kstream.tables("f32i32", STREAM_ROWS, dev, seed)
+    kstream.held("stream14", sv, sc, STREAM_TILE)
+    rows["stream14"] = _kernel_row(
+        "stream_ceiling", kstream.pass_ms("stream14", sv, sc, STREAM_TILE),
+        pf.stream_bytes(sv, sc, STREAM_TILE), pf.stream_flops(sv, sc, STREAM_TILE), f32,
+        info["name"])
 
     # --- torch elementwise stream over the ELL values (no byte model)
     t_ts = pf.chain_time(lambda v: v * 1.0000001, A.vals, k=9)

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 Five kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
-fourteen Pallas TPU kernels of the reference package and one of its timing
+fourteen Pallas TPU kernels of the reference package and five of its timing
 probes:
 
 =================================  ===========================================
@@ -53,6 +53,19 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``probe_nodot``,                   storage-order sweep and its timing-only
 ``probe_nogather``)                variants (``sweep_probe``;
                                    ``probes.ksweepprobe``)
+``stream_ceiling``                 scripts/kstream.py:61 ``make_stream``: the
+(``kstream_f32i32``,               stream over four table mixes
+``kstream_f32f32``,                (``stream_probe``; ``probes.kstream``)
+``kstream_f32``,
+``kstream_f32i16``)
+``stream_ceiling``                 scripts/kprobe.py:54 ``stream_bench``
+(``kprobe_stream``)                (``probes.kprobe``)
+``stream_ceiling``                 scripts/chaintime.py:104 ``make_stream``
+(``chain_stream``)                 (``probes.chaintime``)
+``ell_spmv`` (``spmvp_base``,      scripts/kprobe.py:138 ``spmv4_variant``:
+``spmvp_nogather``,                the SpMV and its timing-only variants
+``spmvp_noreduce``,                without the x gather, the row reduction
+``spmvp_neither``)                 or both (``spmv_probe``; ``probes.kprobe``)
 =================================  ===========================================
 
 The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
@@ -109,7 +122,10 @@ COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0, "sweep2": 0,
           "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0, "spmv1": 0,
           "spmv3": 0, "sweep1": 0, "probe_base": 0, "probe_hoist": 0,
-          "probe_nodot": 0, "probe_nogather": 0}
+          "probe_nodot": 0, "probe_nogather": 0, "kstream_f32i32": 0,
+          "kstream_f32f32": 0, "kstream_f32": 0, "kstream_f32i16": 0,
+          "kprobe_stream": 0, "chain_stream": 0, "spmvp_base": 0,
+          "spmvp_nogather": 0, "spmvp_noreduce": 0, "spmvp_neither": 0}
 SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4", "spmv1", "spmv3")
 
 _lock = threading.Lock()
@@ -197,8 +213,11 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, i, i, p, p, i, p, p, p, i, p]
-            lib.mmp_stream_ceiling.restype = i
-            lib.mmp_stream_ceiling.argtypes = [p, p, i, i, i, p, p]
+            lib.mmp_stream_probe.restype = i
+            lib.mmp_stream_probe.argtypes = [p, p, i, i, i, i, p,
+                                             ctypes.POINTER(i), p]
+            lib.mmp_spmv_probe_f32.restype = i
+            lib.mmp_spmv_probe_f32.argtypes = [p, p, i, i, p, p, i, p]
             lib.mmp_sweep_probe_f32.restype = i
             lib.mmp_sweep_probe_f32.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
             for name in ("mmp_class_sweep_f32", "mmp_class_sweep_f64"):
@@ -240,7 +259,9 @@ class DeviceEll:
     ``role`` names the TPU kernel whose part this matrix plays ("spmv6" for
     the coarsest level and the transfers, "spmv8" for colored levels,
     "spmv2" for v2-fallback levels and transfers the v6 layout refuses,
-    "spmv4" in ``probes.ktime``, "spmv1" and "spmv3" in ``probes.kexp``).
+    "spmv4" in ``probes.ktime``, "spmv1" and "spmv3" in ``probes.kexp``),
+    or, made by ``spmv_probe_ell`` for ``spmv_probe`` only, a
+    ``SPMV_PROBE_MODES`` role (``probes.kprobe``).
     """
 
     vals: torch.Tensor  # [nrows_pad, width] f32 or f64
@@ -289,6 +310,69 @@ def ell_spmv(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
     rc = fn(A.vals.data_ptr(), A.cols.data_ptr(), A.width, A.nrows_pad,
             x.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _launch_ok(rc, "ell_spmv")
+    COUNTS[A.role] += 1
+    return y
+
+
+# The timing-only variants of the SpMV (the reference's scripts/kprobe.py
+# spmv4_variant), by role: the kernel's compile-time mode.  Only
+# "spmvp_base" computes y = A x; the others compute other functions and
+# never reach a solve.
+SPMV_PROBE_MODES = {"spmvp_base": 0, "spmvp_nogather": 1, "spmvp_noreduce": 2,
+                    "spmvp_neither": 3}
+NOGATHER_SCALE = 1e-9  # "spmvp_nogather": acc += v * float(col) * 1e-9
+
+
+def spmv_probe_ell(A: DeviceEll, mode: str) -> DeviceEll:
+    """``A`` as the matrix of SpMV probe mode ``mode`` (a
+    ``SPMV_PROBE_MODES`` role), for ``spmv_probe`` alone."""
+    if mode not in SPMV_PROBE_MODES:
+        raise ValueError(f"{mode!r} is not an SpMV probe role")
+    return dataclasses.replace(A, role=mode)
+
+
+def spmv_probe_plain(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of each SpMV probe mode (``A.role``), [nrows_pad]:
+    per entry ``v * x[col]`` ("spmvp_base", "spmvp_noreduce") or ``v *
+    float(col) * 1e-9`` ("spmvp_nogather", "spmvp_neither": no x read);
+    then the row's sum ("spmvp_base", "spmvp_nogather") or, for row r, the
+    partial of warp lane ``r % 32`` alone: the sum of the entries ``k = r
+    % 32, r % 32 + 32, ...`` ("spmvp_noreduce", "spmvp_neither")."""
+    mode = A.role
+    if mode not in SPMV_PROBE_MODES:
+        raise ValueError(f"{mode!r} is not an SpMV probe role")
+    if mode in ("spmvp_base", "spmvp_noreduce"):
+        prod = A.vals * x[A.cols.long()]
+    else:
+        prod = A.vals * A.cols.to(A.vals.dtype) * NOGATHER_SCALE
+    if mode in ("spmvp_base", "spmvp_nogather"):
+        return prod.sum(dim=1)
+    n, w = prod.shape
+    lanes = torch.nn.functional.pad(prod, (0, -w % 32)).view(n, -1, 32).sum(dim=1)
+    r = torch.arange(n, device=prod.device)
+    return lanes[r, r % 32]
+
+
+def spmv_probe(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
+    """One launch of an SpMV probe mode (``A.role``) of ``ell_spmv``, f32,
+    [nrows_pad].  Timing only: the modes other than "spmvp_base" compute
+    other functions."""
+    if A.role not in SPMV_PROBE_MODES:
+        raise ValueError(f"{A.role!r} is not an SpMV probe role")
+    if x.device.type == "cpu" and A.vals.device.type == "cpu":
+        return spmv_probe_plain(A, x)
+    dev, f32 = A.vals.device, torch.float32
+    if dev.type != "cuda" or A.vals.dtype != f32:
+        raise ValueError(f"spmv_probe takes f32 CUDA tensors, got {A.vals.dtype} on {dev}")
+    _check("cols", A.cols, dev, torch.int32, A.vals.shape)
+    _check("vals", A.vals, dev)
+    _check("x", x, dev, f32, (A.ncols,))
+    y = torch.empty(A.nrows_pad, dtype=f32, device=dev)
+    rc = _load().mmp_spmv_probe_f32(A.vals.data_ptr(), A.cols.data_ptr(), A.width,
+                                    A.nrows_pad, x.data_ptr(), y.data_ptr(),
+                                    SPMV_PROBE_MODES[A.role],
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, "ell_spmv probe")
     COUNTS[A.role] += 1
     return y
 
@@ -674,42 +758,92 @@ def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 STREAM_COLS = 128
 STREAM_OUT_ROWS = 8  # output rows per tile (the reference's (8, 128) block)
+STREAM_MAX_TILE = (1 << 19) - 1  # the f32i16 never-true test holds below 2^19 rows
+# table mix -> (the kernel's mix argument, c's dtype; None: no c)
+STREAM_MIXES = {"f32i32": (0, torch.int32), "f32f32": (1, torch.float32),
+                "f32": (2, None), "f32i16": (3, torch.int16)}
+# role -> the mix it streams: the bench's probe, the reference's
+# scripts/kstream.py (four mixes), scripts/kprobe.py and scripts/chaintime.py
+STREAM_ROLES = {"stream14": "f32i32", "kstream_f32i32": "f32i32",
+                "kstream_f32f32": "f32f32", "kstream_f32": "f32",
+                "kstream_f32i16": "f32i16", "kprobe_stream": "f32i32",
+                "chain_stream": "f32i32"}
+STREAM_CTAS: dict[str, int] = {}  # role -> the CTAs of its last launch
+
+
+def stream_probe_plain(v: torch.Tensor, c, mix: str, tile_rows: int):
+    """Plain version of the stream kernel (one pass): per tile the column
+    sums of ``v`` plus, by ``mix``, the int32 column sums of ``c`` as f32
+    ("f32i32"), the column sums of f32 ``c`` ("f32f32"), nothing ("f32",
+    ``c`` None), or ``where(c[0] > 0, v[0], 0)`` of the tile's first row
+    of i16 ``c`` ("f32i16"); each tile's row of sums repeated in 8 output
+    rows."""
+    nt = v.shape[0] // tile_rows
+
+    def tiles(t):
+        return t.view(nt, tile_rows, STREAM_COLS)
+
+    s = tiles(v).sum(dim=1)
+    if mix == "f32i32":
+        s = s + tiles(c).sum(dim=1, dtype=torch.int32).to(v.dtype)
+    elif mix == "f32f32":
+        s = s + tiles(c).sum(dim=1)
+    elif mix == "f32i16":
+        s = s + torch.where(tiles(c)[:, 0] > 0, tiles(v)[:, 0], 0.0)
+    elif mix != "f32":
+        raise ValueError(f"unknown stream mix {mix!r}")
+    return s[:, None, :].expand(nt, STREAM_OUT_ROWS, STREAM_COLS).reshape(-1, STREAM_COLS)
 
 
 def stream_ceiling_plain(v: torch.Tensor, c: torch.Tensor, tile_rows: int):
-    """Plain version of ``stream_ceiling`` (one pass): per tile the column
-    sums of ``v`` plus the int32 column sums of ``c`` as f32, each tile's
-    row of sums repeated in 8 output rows."""
-    nt = v.shape[0] // tile_rows
-    s = (v.view(nt, tile_rows, STREAM_COLS).sum(dim=1)
-         + c.view(nt, tile_rows, STREAM_COLS).sum(dim=1, dtype=torch.int32).to(v.dtype))
-    return s[:, None, :].expand(nt, STREAM_OUT_ROWS, STREAM_COLS).reshape(-1, STREAM_COLS)
+    """Plain version of ``stream_ceiling``: the "f32i32" mix."""
+    return stream_probe_plain(v, c, "f32i32", tile_rows)
+
+
+def stream_probe(v: torch.Tensor, c, role: str, tile_rows: int = 4096,
+                 reps: int = 1) -> torch.Tensor:
+    """Stream [rows, 128] f32 ``v`` and, by the mix of ``role``
+    (``STREAM_ROLES``), ``c`` (None for "f32") ``reps`` times in one
+    launch; returns the [rows / tile_rows * 8, 128] f32 tile sums.  The
+    "f32i16" value (one row of ``c`` enters it) serves timing: the kernel
+    still reads all of ``c``.  The launch's CTA count (min(tiles, CTAs
+    resident at once)) is left in ``STREAM_CTAS[role]``."""
+    if role not in STREAM_ROLES:
+        raise ValueError(f"unknown stream role {role!r}")
+    mix = STREAM_ROLES[role]
+    mix_id, cdt = STREAM_MIXES[mix]
+    rows = v.shape[0]
+    if (tile_rows <= 0 or tile_rows > STREAM_MAX_TILE or rows % tile_rows
+            or reps < 1 or (c is None) != (cdt is None)):
+        raise ValueError(f"stream {role}: {rows} rows in tiles of {tile_rows}, "
+                         f"reps={reps}, c {'absent' if c is None else 'given'}")
+    if v.device.type == "cpu" and (c is None or c.device.type == "cpu"):
+        return stream_probe_plain(v, c, mix, tile_rows)
+    dev = v.device
+    if dev.type != "cuda":
+        raise ValueError(f"stream {role} takes CUDA tensors, got {dev}")
+    _check("v", v, dev, torch.float32, (rows, STREAM_COLS))
+    if c is not None:
+        _check("c", c, dev, cdt, (rows, STREAM_COLS))
+    nt = rows // tile_rows
+    out = torch.empty(nt * STREAM_OUT_ROWS, STREAM_COLS, dtype=torch.float32,
+                      device=dev)
+    ctas = ctypes.c_int(0)
+    rc = _load().mmp_stream_probe(v.data_ptr(), None if c is None else c.data_ptr(),
+                                  mix_id, nt, tile_rows, reps, out.data_ptr(),
+                                  ctypes.byref(ctas),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, f"stream {role}")
+    COUNTS[role] += 1
+    STREAM_CTAS[role] = ctas.value
+    return out
 
 
 def stream_ceiling(v: torch.Tensor, c: torch.Tensor, tile_rows: int = 4096,
                    reps: int = 1) -> torch.Tensor:
-    """Stream [rows, 128] f32 ``v`` and int32 ``c`` ``reps`` times in one
-    launch; returns the [rows / tile_rows * 8, 128] f32 tile sums."""
-    rows = v.shape[0]
-    if tile_rows <= 0 or rows % tile_rows or reps < 1:
-        raise ValueError(f"stream_ceiling: {rows} rows in tiles of {tile_rows}, "
-                         f"reps={reps}")
-    if v.device.type == "cpu" and c.device.type == "cpu":
-        return stream_ceiling_plain(v, c, tile_rows)
-    dev = v.device
-    if dev.type != "cuda":
-        raise ValueError(f"stream_ceiling takes CUDA tensors, got {dev}")
-    _check("v", v, dev, torch.float32, (rows, STREAM_COLS))
-    _check("c", c, dev, torch.int32, (rows, STREAM_COLS))
-    nt = rows // tile_rows
-    out = torch.empty(nt * STREAM_OUT_ROWS, STREAM_COLS, dtype=torch.float32,
-                      device=dev)
-    rc = _load().mmp_stream_ceiling(v.data_ptr(), c.data_ptr(), nt, tile_rows,
-                                    reps, out.data_ptr(),
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    _launch_ok(rc, "stream_ceiling")
-    COUNTS["stream14"] += 1
-    return out
+    """The kernel bench's probe (role ``stream14``): [rows, 128] f32 ``v``
+    and int32 ``c`` streamed ``reps`` times in one launch."""
+    return stream_probe(v, c, "stream14", tile_rows, reps)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@ Port of the reference package's ``utils/profiling.py``.  Each level's
 matvec and smoother sweep are timed on the card with CUDA events
 (``chain_time``) and turned into throughputs from the level's true nonzero
 count and a byte model of what each function needs: its nonzeros and its
-vectors, no padding (``spmv_bytes``, ``sweep_bytes``, ``compact_bytes``).
+vectors, no padding (``spmv_bytes``, ``sweep_bytes``, ``compact_bytes``;
+for the timing probes, each mode's or table mix's own work:
+``probe_bytes``, ``spmv_probe_bytes``, ``stream_bytes``).  Below
+``ENQUEUE_MS`` a chain of launches times the host's enqueue, and
+``device_ms`` reads the device time per call from ``torch.profiler``.
 Beside each time stands its bound: the
 least time the card could take for the same work, the larger of the bytes
 over the card's memory rate and the operations over its arithmetic rate
@@ -25,10 +29,12 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import ClassSweep
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # memory bytes/s and arithmetic FLOP/s outside the tensor cores per dtype
-# (the kernels multiply bf16 K in f32 on the CUDA cores).
+# (the kernels multiply bf16 K in f32 on the CUDA cores); "bf16_tensor"
+# the tensor cores' bf16 rate (``probes.chaintime``'s matmul calibration).
 PEAKS = {
     "NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, torch.float32: 67e12,
-                              torch.float64: 34e12},  # H100 SXM
+                              torch.float64: 34e12,
+                              "bf16_tensor": 989e12},  # H100 SXM
 }
 
 
@@ -147,6 +153,41 @@ def probe_flops(sw) -> int:
     return {"probe_nodot": a, "probe_nogather": k}.get(sw.role, a + k)
 
 
+def spmv_probe_bytes(A) -> int:
+    """Bytes one launch of an SpMV probe mode (``A.role``) needs: as
+    ``spmv_bytes`` ("spmvp_base", "spmvp_noreduce"); "spmvp_nogather" and
+    "spmvp_neither" read no x."""
+    if A.role in ("spmvp_nogather", "spmvp_neither"):
+        es = A.vals.element_size()
+        return _nnz(A.vals) * (es + 4) + A.nrows_pad * es
+    return spmv_bytes(A)
+
+
+def spmv_probe_flops(A) -> int:
+    """Per nonzero a multiply and an add, and for the no-gather modes the
+    multiply by 1e-9 on top."""
+    nogather = A.role in ("spmvp_nogather", "spmvp_neither")
+    return (3 if nogather else 2) * _nnz(A.vals)
+
+
+def stream_bytes(v: torch.Tensor, c, tile_rows: int) -> int:
+    """Bytes one pass of the stream kernel needs: each table read once
+    (``c`` None for the "f32" mix: 4 B an element; f32i32 and f32f32 8 B,
+    f32i16 6 B) and the 8 output rows per tile written once."""
+    out = v.shape[0] // tile_rows * 8 * v.shape[1] * 4
+    return v.nbytes + (0 if c is None else c.nbytes) + out
+
+
+def stream_flops(v: torch.Tensor, c, tile_rows: int) -> int:
+    """One add per summed element; "f32i16" sums ``v`` and selects one row
+    of a tile (a compare and an add per column)."""
+    if c is None:
+        return v.numel()
+    if c.dtype == torch.int16:
+        return v.numel() + 2 * (v.shape[0] // tile_rows) * v.shape[1]
+    return v.numel() + c.numel()
+
+
 def compact_bytes(C) -> int:
     """Bytes one ``compact_rows`` call needs (``C`` a DeviceCompact): each
     nonzero's value and int32 column, each true row's target and diagonal,
@@ -171,6 +212,36 @@ def library_csr(vals: torch.Tensor, cols: torch.Tensor, ncols: int):
     crow[1:] = nz.sum(dim=1).cumsum(0)
     return torch.sparse_csr_tensor(crow, cols[nz].long(), vals[nz],
                                    size=(vals.shape[0], ncols))
+
+
+ENQUEUE_MS = 0.05  # below this a chain of launches times the host's enqueue
+
+
+def device_ms(op, x: torch.Tensor, k: int = 50, tries: int = 3) -> float:
+    """Device time per call of ``op(x)`` in ms: ``k`` calls after a warm-up
+    under ``torch.profiler``, the summed duration of every device activity
+    (kernels, copies, sets) over ``k``.  For calls whose chain time
+    (``chain_time``) is below ``ENQUEUE_MS``, where that is the host's
+    enqueue rate.  A window in which the profiler recorded no device
+    activity at all (it has dropped a whole window's activities on an
+    H100) is profiled again, up to ``tries`` windows; then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError("device_ms times on the card: it takes a CUDA tensor")
+    op(x)
+    torch.cuda.synchronize(x.device)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                op(x)
+            torch.cuda.synchronize(x.device)
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / k
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} windows")
 
 
 def _streamed_bytes(level, sweep: bool) -> int:

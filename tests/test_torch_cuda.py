@@ -15,8 +15,10 @@ max |plain output|: f32 1e-5 for the SpMV (another summation order over
 gather-sum with a two-operation epilogue: the SpMV's tolerances.  The
 bf16-K sweep against its bf16 plain version: 1e-2 of max |dx| (both round
 t to bf16; a t element on the other side of a rounding boundary moves its
-column's contribution by one bf16 ulp, 2^-8).  ``stream_ceiling`` sums
-small integers: exact.  ``class_sor_sweep`` (K-free class SOR) against
+column's contribution by one bf16 ulp, 2^-8).  ``stream_ceiling`` and
+``stream_probe`` (every table mix) sum small integers: exact.  The SpMV
+probe modes (``spmv_probe``) against their plain versions: the SpMV's f32
+tolerance.  ``class_sor_sweep`` (K-free class SOR) against
 its plain version: the sweep's tolerances, on the fixture (unpermuted:
 rows of one 8-row tile couple), on ``probes.realsparsity``'s 4,096-row
 pattern and on a (block, class)-permuted solve level.
@@ -480,4 +482,59 @@ def test_kexp_and_ksweepprobe_on_card():
     assert set(res2["split_per_block"]) == {"gather_us", "k_product_us", "base_us",
                                             "hoist_us"}
     for r in [*res["kernels"].values(), *res2["kernels"].values()]:
+        assert 0 < r["bound_ms"] <= 1.05 * r["ms"]
+
+
+@pytest.mark.parametrize("role", [r for r in gk.STREAM_ROLES if r != "stream14"])
+@pytest.mark.parametrize("reps", [1, 3])
+def test_stream_probe_roles_count_and_match_plain(role, reps):
+    """Each table mix at 1,024-row tiles (64-row tiles for kprobe's role,
+    its smallest), exact on small integers, one launch counted."""
+    from meshlessmultigridpoisson_torch.probes import kstream
+
+    mix = gk.STREAM_ROLES[role]
+    tpp = 64 if role == "kprobe_stream" else 1024
+    v, c = kstream.tables(mix, 8 * 1024, "cuda", seed=3)
+    before = dict(gk.COUNTS)
+    out = gk.stream_probe(v, c, role, tpp, reps)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        role: 1}
+    assert 1 <= gk.STREAM_CTAS[role] <= v.shape[0] // tpp
+    assert torch.equal(out, gk.stream_probe_plain(v, c, mix, tpp))
+
+
+@pytest.mark.parametrize("mode", sorted(gk.SPMV_PROBE_MODES))
+def test_spmv_probe_modes_count_and_match_plain(et, mode):
+    """Each mode against its plain version; ``spmvp_base`` is the
+    production SpMV bit for bit."""
+    A0 = gk.device_ell(et, torch.float32, "cuda", "spmv6")
+    A = gk.spmv_probe_ell(A0, mode)
+    x = _rand(A.ncols, torch.float32, 26)
+    before = dict(gk.COUNTS)
+    out = gk.spmv_probe(A, x)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        mode: 1}
+    ref = gk.spmv_probe_plain(A, x)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    if mode == "spmvp_base":
+        assert torch.equal(out, gk.ell_spmv(A0, x))
+
+
+def test_stream_probes_on_card():
+    """The three probes, the SpMV at a small size (the streams at theirs:
+    smaller tables would stay in L2 between passes and beat the memory
+    bound): every role launched, each kernel held against its plain version
+    inside the probe, times at or above bound."""
+    from meshlessmultigridpoisson_torch.probes import chaintime, kprobe, kstream
+
+    gk.reset_counts()
+    res = [kstream.run(), kprobe.run(n=16384, iters=2), chaintime.run()]
+    roles = [r for r in gk.COUNTS if r.startswith(("kstream_", "spmvp_"))]
+    assert all(gk.COUNTS[r] > 0 for r in roles + ["kprobe_stream", "chain_stream"])
+    assert len(res[0]["kernels"]) == 13 and len(res[1]["kernels"]) == 8
+    assert set(res[1]["spmv_split"]) == {"base_ms", "gather_ms", "reduction_ms",
+                                         "neither_ms"}
+    for r in [row for p in res for row in p["kernels"].values()]:
         assert 0 < r["bound_ms"] <= 1.05 * r["ms"]

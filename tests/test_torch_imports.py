@@ -32,6 +32,8 @@ SLICE_MODULES = (
     "ops.gpu_kernels", "mg.gpu_backend", "mg.mixed", "mg.krylov", "apps.cli",
     "interop", "models.fracstep", "models.fracstep_gpu", "geometry.msh",
     "bench", "utils.profiling", "probes.realsparsity", "probes.ktime",
+    "probes.kexp", "probes.ksweepprobe", "probes.kstream", "probes.kprobe",
+    "probes.chaintime",
 )
 
 
