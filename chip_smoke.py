@@ -100,7 +100,16 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    before timing it (streams exactly, SpMV modes within 1e-5 of max
    |plain|), and the phase checks every role launched, each row's error
    within that tolerance and each row at or above its bound; prints the
-   SpMV's split into gather and reduction;
+   SpMV's split into gather and reduction.  After ``probes.kprobe``, on
+   its 262,144-row operator (built once, before ``kprobe``, for the four
+   probes), the kiso probes, each the same way: ``probes.kiso6`` (roles
+   ``kiso6_{i16,i32}_{guarded,unguarded}``: u16 or int32 columns, an id
+   table padded to a multiple of 8 blocks), ``probes.kiso7``
+   (``kiso7_affine``, ``kiso7_ids`` and the stock ``spmv4``) and
+   ``probes.kiso8`` (``kiso8_mxu``, ``kiso8_mxudef``: the tensor-core row
+   sums in two and one TF32 passes; ``kiso8_vpu``: the warp shuffle);
+   every role within 1e-5 of max |plain| (``kiso8_mxudef`` of its TF32
+   plain version);
 9. print a JSON line of per-kernel results, the total time, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
@@ -181,6 +190,15 @@ ROLES = {
     "chain_stream": ("stream_ceiling",
                      "meshlessmultigridpoisson_torch/csrc/stream_ceiling.cu",
                      "scripts/chaintime.py:104"),
+    **{f"kiso6_{c}_{g}": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+                          "scripts/kiso6.py:98")
+       for c in ("i16", "i32") for g in ("guarded", "unguarded")},
+    **{m: ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+           "scripts/kiso7.py:86") for m in ("kiso7_affine", "kiso7_ids")},
+    **{m: ("ell_rowsum_mma", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+           "scripts/kiso8.py:136") for m in ("kiso8_mxu", "kiso8_mxudef")},
+    "kiso8_vpu": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+                  "scripts/kiso8.py:136"),
 }
 DIRICHLET_ROLES = ("spmv6", "spmv8", "sweep7", "sweep8")
 EXACT_ROLES = ("spmv6", "sweep6", "sweep7")
@@ -201,6 +219,12 @@ KPROBE_ITERS = 20
 KPROBE_ROLES = ("kprobe_stream", "spmvp_base", "spmvp_nogather", "spmvp_noreduce",
                 "spmvp_neither")
 CHAIN_ROLES = ("chain_stream",)
+# the kiso probes, on kprobe's operator (each role held within 1e-5)
+KISO_ITERS = 20
+KISO6_ROLES = ("kiso6_i16_guarded", "kiso6_i16_unguarded", "kiso6_i32_guarded",
+               "kiso6_i32_unguarded")
+KISO7_ROLES = ("kiso7_affine", "kiso7_ids", "spmv4")
+KISO8_ROLES = ("kiso8_mxu", "kiso8_mxudef", "kiso8_vpu")
 # the NS main path: the reference program's default run at its own width
 # and depth (cli ns defaults), S steps from rest
 NS_SIZES = [170, 600, 2500, 10000]
@@ -316,6 +340,9 @@ def main(argv=None) -> int:
         from meshlessmultigridpoisson_torch.probes import (
             chaintime,
             kexp,
+            kiso6,
+            kiso7,
+            kiso8,
             kprobe,
             ksweepprobe,
             kstream,
@@ -624,6 +651,10 @@ def main(argv=None) -> int:
                   f"--profile ({card}):", flush=True)
             for row in rec.extra["per_level"]:
                 print("  " + json.dumps(row), flush=True)
+            print(f"{path}: launches and device ms per launch by shape (--profile run):",
+                  flush=True)
+            for row in rec.extra["profile"]["launch_shapes"]:
+                print("  " + json.dumps(row), flush=True)
             slow = [r["level"] for r in rec.extra["per_level"]
                     if not 0 < r["sweep_bound_ms"] <= r["sweep_ms"]
                     or not 0 < r["matvec_bound_ms"] <= r["matvec_ms"]]
@@ -797,13 +828,24 @@ def main(argv=None) -> int:
     # ---- 8. the stream probes and the SpMV's gather/reduction split ------------
     stream_tol = dict.fromkeys(KSTREAM_ROLES + CHAIN_ROLES + ("kprobe_stream",),
                                TOL[("stream", "f32")])
-    spmv_tol = dict.fromkeys(KPROBE_ROLES[1:], TOL[("spmv", "f32")])
+    spmv_tol = dict.fromkeys(KPROBE_ROLES[1:] + KISO6_ROLES + KISO7_ROLES + KISO8_ROLES,
+                             TOL[("spmv", "f32")])
+    t0 = time.perf_counter()
+    kiso_ell = kprobe.build_operator(kprobe.N)
+    print(f"kprobe operator (host, shared by kprobe and the kiso probes): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    banded = f"banded {kprobe.N} x {kprobe.K}"
     for name, run_probe, roles, shape in (
             ("kstream", kstream.run, KSTREAM_ROLES,
              f"[{kstream.ROWS}, 128] tables"),
-            ("kprobe", lambda: kprobe.run(kprobe.N, KPROBE_ITERS), KPROBE_ROLES,
-             f"stream [{kprobe.STREAM_ROWS}, 128] f32 + i32, SpMV banded "
-             f"{kprobe.N} x {kprobe.K}"),
+            ("kprobe", lambda: kprobe.run(kprobe.N, KPROBE_ITERS, ell=kiso_ell),
+             KPROBE_ROLES, f"stream [{kprobe.STREAM_ROWS}, 128] f32 + i32, SpMV {banded}"),
+            ("kiso6", lambda: kiso6.run(kiso6.N, KISO_ITERS, ell=kiso_ell), KISO6_ROLES,
+             banded),
+            ("kiso7", lambda: kiso7.run(kiso7.N, KISO_ITERS, ell=kiso_ell), KISO7_ROLES,
+             banded),
+            ("kiso8", lambda: kiso8.run(kiso8.N, KISO_ITERS, ell=kiso_ell), KISO8_ROLES,
+             banded),
             ("chaintime", chaintime.run, CHAIN_ROLES,
              f"[{chaintime.ROWS}, 128] f32 + i32, delta of 9 and 1 passes")):
         print(f"main path ({name}): python -m meshlessmultigridpoisson_torch.probes."
@@ -817,6 +859,9 @@ def main(argv=None) -> int:
             print(f"kprobe: ell_spmv split at {res['n']} x {res['k']} ({card}): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in res["spmv_split"].items()),
                   flush=True)
+        if name == "kiso6":
+            print(f"kiso6 ({card}): {res['padding']}; largest block column span "
+                  f"{res['max_block_span']}", flush=True)
         if name == "chaintime":
             for label, r in res["calibrations"].items():
                 print(f"chaintime calibration {label} ({card}): {json.dumps(r)}",

@@ -17,8 +17,9 @@ condensation pushdown) -> mixed-precision defect correction
 BiCGStab inside.  One outer pass runs untimed first, then the timed solve.
 ``--sweep-order exact`` runs the storage-order sweep on every level,
 ``--fast-k`` stores the sweep's K in bf16; ``--profile`` adds a
-torch.profiler summary of one more solve and a per-level table of kernel
-times, throughputs and bounds (utils/profiling.py).
+torch.profiler summary of one more solve (with launches and device time
+per launch by launch shape) and a per-level table of kernel times,
+throughputs and bounds (utils/profiling.py).
 
 ``ns`` (the reference package's ``ns --platform tpu``, the reference
 program's default run): the fractional-step Kovasznay flow, f64 host setup
@@ -73,7 +74,8 @@ def _parser() -> argparse.ArgumentParser:
                         "plain f64 sweep)")
     p.add_argument("--profile", action="store_true",
                    help="after the timed solve, run it once more under "
-                        "torch.profiler and attach per-kernel device time "
+                        "torch.profiler and attach per-kernel device time, "
+                        "launches and device time per launch by launch shape "
                         "and the device busy share to the record, and a "
                         "per-level table (sweep/matvec ms, nnz/s, modelled "
                         "GB/s, bounds) and the solve's effective nnz/s")
@@ -128,32 +130,50 @@ def _sync(dev) -> None:
 
 def _device_profile(solve, dev) -> dict:
     """Run ``solve()`` under torch.profiler; per-kernel device time (top 12
-    by time) and the device busy share of that run's wall time."""
+    by time), the device busy share of that run's wall time, and per launch
+    shape of the solve's kernels ("role rows x cols": the rows a launch
+    writes, the length of the vector it reads; ``gpu_kernels.SHAPES``) the
+    launches and the device time per launch.  The shapes' profiler ranges
+    add host time: the busy share is the plain run's only where no shape
+    was counted."""
     import time
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels
+
     if dev.type != "cuda":
         return {"device_busy_share": "not measured (no CUDA device)"}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve()
-        _sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    gpu_kernels.SHAPES = {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve()
+            _sync(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        shapes = gpu_kernels.SHAPES
+    finally:
+        gpu_kernels.SHAPES = None
     by_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a shape's profiler range shows on the device too: not a kernel
+        if e.device_type == DeviceType.CUDA and e.name not in shapes:
             acc = by_name.setdefault(e.name, [0, 0.0])
             acc[0] += 1
             acc[1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    dev_us = {e.key: e.device_time_total for e in prof.key_averages() if e.key in shapes}
+    launches = [{"shape": k, "launches": c, "device_ms": dev_us.get(k, 0.0) / 1e3,
+                 "device_ms_per_launch": dev_us.get(k, 0.0) / 1e3 / c}
+                for k, c in sorted(shapes.items())]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "kernels": [{"name": n[:96], "calls": c, "ms": ms}
-                        for n, (c, ms) in top]}
+                        for n, (c, ms) in top],
+            "launch_shapes": launches}
 
 
 def run_solve(argv=None, problem=None, use_v6=None):

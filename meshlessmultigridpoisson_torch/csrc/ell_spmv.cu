@@ -40,14 +40,64 @@
 //              sum by a plain sum over tile rows: another partial)
 //   kNeither   both
 
+// The kiso probes (the reference's scripts/kiso6.py:98 and kiso7.py:86
+// spmv_var; probes/kiso6.py, probes/kiso7.py) add two more compile-time
+// axes, f32 and kBase only, timing probes that never reach a solve:
+//   column format  kColI32  the global int32 column (8 B per f32 entry);
+//                  kColU16  a 16-bit unsigned offset from the int32 base
+//                           column of the row's 128-row block (6 B per f32
+//                           entry; the host prep refuses a block whose
+//                           columns span more than 65,535)
+//   row source     kAffine  y row r = A row r (the production mapping: one
+//                           warp per row, 8 rows per CTA);
+//                  kIds     y block j = A block ids[j];
+//                  kIdsGuarded / kIdsUnguarded: the same on an id table
+//                           padded with -1; guarded, a CTA whose id is < 0
+//                           writes nothing; unguarded, it computes block
+//                           max(id, 0) = 0 and writes it into its block.
+//                  The id sources run one CTA per 128-row output block
+//                  (8 warps, a warp per row, 16 rows each): its id (and,
+//                  for kColU16, its base column) is read once by one
+//                  thread and shared, so the dependent load is paid once
+//                  a block.  The row's arithmetic is the production code's.
+// The production entry points are <kBase, kColI32, kAffine>.
+//
+// ell_rowsum_mma<Passes> (the reference's scripts/kiso8.py:136 spmv_var,
+// its MXU row sums; probes/kiso8.py): y = A x with the row sums taken by
+// the tensor cores.  One warp owns 16 rows; for each chunk of 8 entries a
+// row, each lane forms four products v * x[col] in f32 and puts them, as
+// TF32, straight into its registers of an mma.sync m16n8k8 A fragment
+// (lane l: rows l/4 and l/4 + 8, slots l%4 and l%4 + 4; slot order within
+// a chunk is free, since B is all ones: lane l takes the row's entries
+// 8c + 2(l%4) and + 1, one 8-byte load of values and one of columns per
+// row).  Column n of the f32 accumulator holds the 16 row sums for every
+// n; lanes l%4 == 0 write column 0.  The width must be a multiple of 8
+// (the host pads with value 0 and a valid column).  Passes = 2, the
+// counterpart of the reference's Precision.HIGHEST: hi = cvt.rna.tf32(p),
+// lo = cvt.rna.tf32(p - hi), two mma a chunk (ones are exact in TF32, so
+// B needs no split), p kept to ~2^-22 relative.  Passes = 1, the
+// counterpart of DEFAULT: one TF32 pass, ~3 decimal digits, timing only.
+// Bounded like the SpMV by its stream of 8 B per entry: the tensor cores
+// do 1/16 of an mma's work per entry; the design keeps each row's loads in
+// whole 32-byte sectors.
+
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kRowsPerCta = 8;  // one warp per row, 256 threads per CTA
+constexpr int kBlockRows = 128;  // rows of an id-table block and a u16 base
 
 enum SpmvMode : int { kBase = 0, kNoGather = 1, kNoReduce = 2, kNeither = 3 };
+enum ColFormat : int { kColI32 = 0, kColU16 = 1 };
+enum RowSource : int { kAffine = 0, kIds = 1, kIdsGuarded = 2, kIdsUnguarded = 3 };
+
+template <int Col>
+using ColT = std::conditional_t<Col == kColU16, unsigned short, int>;
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -57,40 +107,157 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-template <typename T, int Mode>
-__global__ void __launch_bounds__(kWarp * kRowsPerCta)
-ell_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
-                int width, int nrows, const T* __restrict__ x,
-                T* __restrict__ y) {
+// One warp: A row `arow` (entries base .. base + width) into y[yrow].
+// col0: the base column of the row's block (kColU16; 0 otherwise).
+template <typename T, int Mode, int Col>
+__device__ __forceinline__ void spmv_row(const T* __restrict__ vals,
+                                         const ColT<Col>* __restrict__ cols,
+                                         int col0, int width, int arow,
+                                         int yrow, int lane,
+                                         const T* __restrict__ x,
+                                         T* __restrict__ y) {
   constexpr bool kGather = Mode == kBase || Mode == kNoReduce;
   constexpr bool kReduce = Mode == kBase || Mode == kNoGather;
-  const int row = blockIdx.x * kRowsPerCta + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= nrows) return;  // whole warp leaves together
-  const size_t base = static_cast<size_t>(row) * width;
+  const size_t base = static_cast<size_t>(arow) * width;
   T acc = T(0);
   for (int k = lane; k < width; k += kWarp) {
-    if constexpr (kGather) {
-      acc += vals[base + k] * x[cols[base + k]];
+    int c;
+    if constexpr (Col == kColU16) {
+      c = col0 + static_cast<int>(cols[base + k]);
     } else {
-      acc += vals[base + k] * static_cast<T>(cols[base + k]) * T(1e-9);
+      c = cols[base + k];
+    }
+    if constexpr (kGather) {
+      acc += vals[base + k] * x[c];
+    } else {
+      acc += vals[base + k] * static_cast<T>(c) * T(1e-9);
     }
   }
   if constexpr (kReduce) {
     acc = warp_sum(acc);
-    if (lane == 0) y[row] = acc;
+    if (lane == 0) y[yrow] = acc;
   } else {
-    if (lane == row % kWarp) y[row] = acc;
+    if (lane == yrow % kWarp) y[yrow] = acc;
   }
 }
 
-template <typename T, int Mode = kBase>
-int launch_ell_spmv(const T* vals, const int* cols, int width, int nrows,
-                    const T* x, T* y, void* stream) {
+template <typename T, int Mode, int Col = kColI32, int Src = kAffine>
+__global__ void __launch_bounds__(kWarp * kRowsPerCta)
+ell_spmv_kernel(const T* __restrict__ vals, const ColT<Col>* __restrict__ cols,
+                const int* __restrict__ col_base, const int* __restrict__ ids,
+                int width, int nrows, const T* __restrict__ x,
+                T* __restrict__ y) {
+  const int lane = threadIdx.x % kWarp;
+  if constexpr (Src == kAffine) {
+    const int row = blockIdx.x * kRowsPerCta + threadIdx.x / kWarp;
+    if (row >= nrows) return;  // whole warp leaves together
+    const int col0 = Col == kColU16 ? col_base[row / kBlockRows] : 0;
+    spmv_row<T, Mode, Col>(vals, cols, col0, width, row, row, lane, x, y);
+  } else {
+    // one CTA per output block (grid = the id table's length)
+    __shared__ int s_id, s_col0;
+    if (threadIdx.x == 0) {
+      int id = ids[blockIdx.x];
+      if constexpr (Src == kIdsUnguarded) id = max(id, 0);
+      s_id = id;
+      s_col0 = (Col == kColU16 && id >= 0) ? col_base[id] : 0;
+    }
+    __syncthreads();
+    const int id = s_id, col0 = s_col0;
+    if constexpr (Src == kIdsGuarded) {
+      if (id < 0) return;  // the whole CTA: a padded block writes nothing
+    }
+    for (int r = threadIdx.x / kWarp; r < kBlockRows; r += kRowsPerCta) {
+      spmv_row<T, Mode, Col>(vals, cols, col0, width, id * kBlockRows + r,
+                             blockIdx.x * kBlockRows + r, lane, x, y);
+    }
+  }
+}
+
+template <typename T, int Mode = kBase, int Col = kColI32, int Src = kAffine>
+int launch_ell_spmv(const T* vals, const ColT<Col>* cols, const int* col_base,
+                    const int* ids, int width, int nrows, const T* x, T* y,
+                    void* stream) {
+  // kAffine: nrows rows; the id sources: nrows = the id table's length
+  const int grid = Src == kAffine ? (nrows + kRowsPerCta - 1) / kRowsPerCta
+                                  : nrows;
+  if (grid > 0) {
+    ell_spmv_kernel<T, Mode, Col, Src><<<grid, kWarp * kRowsPerCta, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
+        vals, cols, col_base, ids, width, nrows, x, y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kMmaWarps = 8;  // 8 warps x 16 rows = 128 rows per CTA
+
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// d += A (16 x 8, TF32, row-major fragment a) * ones (8 x 8)
+__device__ __forceinline__ void mma_ones(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3) {
+  const uint32_t one = 0x3f800000u;  // 1.0f, exact in TF32
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(one), "r"(one));
+}
+
+template <int Passes>
+__global__ void __launch_bounds__(kWarp * kMmaWarps)
+ell_rowsum_mma_kernel(const float* __restrict__ vals,
+                      const int* __restrict__ cols, int width, int nrows,
+                      const float* __restrict__ x, float* __restrict__ y) {
+  const int lane = threadIdx.x % kWarp;
+  const int row0 = (blockIdx.x * kMmaWarps + threadIdx.x / kWarp) * 16;
+  if (row0 >= nrows) return;  // whole warp: nrows is a multiple of 16
+  const int g = lane / 4, t = lane % 4;
+  const size_t ra = static_cast<size_t>(row0 + g) * width;  // row g
+  const size_t rb = ra + static_cast<size_t>(8) * width;    // row g + 8
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  // every lane runs the same count of chunks: width % 8 == 0, 2t < 8
+  for (int k = 2 * t; k < width; k += 8) {
+    const float2 va = *reinterpret_cast<const float2*>(vals + ra + k);
+    const float2 vb = *reinterpret_cast<const float2*>(vals + rb + k);
+    const int2 ca = *reinterpret_cast<const int2*>(cols + ra + k);
+    const int2 cb = *reinterpret_cast<const int2*>(cols + rb + k);
+    const float p0 = va.x * x[ca.x];  // a0: row g,     slot t
+    const float p1 = vb.x * x[cb.x];  // a1: row g + 8, slot t
+    const float p2 = va.y * x[ca.y];  // a2: row g,     slot t + 4
+    const float p3 = vb.y * x[cb.y];  // a3: row g + 8, slot t + 4
+    const uint32_t h0 = to_tf32(p0), h1 = to_tf32(p1), h2 = to_tf32(p2),
+                   h3 = to_tf32(p3);
+    mma_ones(d, h0, h1, h2, h3);
+    if constexpr (Passes == 2) {
+      mma_ones(d, to_tf32(p0 - __uint_as_float(h0)),
+               to_tf32(p1 - __uint_as_float(h1)),
+               to_tf32(p2 - __uint_as_float(h2)),
+               to_tf32(p3 - __uint_as_float(h3)));
+    }
+  }
+  if (t == 0) {  // d[0]: (row g, column 0); d[2]: (row g + 8, column 0)
+    y[row0 + g] = d[0];
+    y[row0 + g + 8] = d[2];
+  }
+}
+
+template <int Passes>
+int launch_rowsum_mma(const float* vals, const int* cols, int width,
+                      int nrows, const float* x, float* y, void* stream) {
+  if (width % 8 != 0 || nrows % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (nrows > 0) {
-    const int grid = (nrows + kRowsPerCta - 1) / kRowsPerCta;
-    ell_spmv_kernel<T, Mode><<<grid, kWarp * kRowsPerCta, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+    const int rows_per_cta = 16 * kMmaWarps;
+    const int grid = (nrows + rows_per_cta - 1) / rows_per_cta;
+    ell_rowsum_mma_kernel<Passes><<<grid, kWarp * kMmaWarps, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
         vals, cols, width, nrows, x, y);
   }
   return static_cast<int>(cudaGetLastError());
@@ -101,13 +268,15 @@ int launch_ell_spmv(const T* vals, const int* cols, int width, int nrows,
 extern "C" int mmp_ell_spmv_f32(const float* vals, const int* cols, int width,
                                 int nrows, const float* x, float* y,
                                 void* stream) {
-  return launch_ell_spmv<float>(vals, cols, width, nrows, x, y, stream);
+  return launch_ell_spmv<float>(vals, cols, nullptr, nullptr, width, nrows, x,
+                                y, stream);
 }
 
 extern "C" int mmp_ell_spmv_f64(const double* vals, const int* cols,
                                 int width, int nrows, const double* x,
                                 double* y, void* stream) {
-  return launch_ell_spmv<double>(vals, cols, width, nrows, x, y, stream);
+  return launch_ell_spmv<double>(vals, cols, nullptr, nullptr, width, nrows,
+                                 x, y, stream);
 }
 
 // the timing-only variants (f32); mode is a SpmvMode.  Returns
@@ -117,17 +286,60 @@ extern "C" int mmp_spmv_probe_f32(const float* vals, const int* cols,
                                   float* y, int mode, void* stream) {
   switch (mode) {
     case kBase:
-      return launch_ell_spmv<float, kBase>(vals, cols, width, nrows, x, y,
-                                           stream);
+      return launch_ell_spmv<float, kBase>(vals, cols, nullptr, nullptr,
+                                           width, nrows, x, y, stream);
     case kNoGather:
-      return launch_ell_spmv<float, kNoGather>(vals, cols, width, nrows, x,
-                                               y, stream);
+      return launch_ell_spmv<float, kNoGather>(vals, cols, nullptr, nullptr,
+                                               width, nrows, x, y, stream);
     case kNoReduce:
-      return launch_ell_spmv<float, kNoReduce>(vals, cols, width, nrows, x,
-                                               y, stream);
+      return launch_ell_spmv<float, kNoReduce>(vals, cols, nullptr, nullptr,
+                                               width, nrows, x, y, stream);
     case kNeither:
-      return launch_ell_spmv<float, kNeither>(vals, cols, width, nrows, x, y,
-                                              stream);
+      return launch_ell_spmv<float, kNeither>(vals, cols, nullptr, nullptr,
+                                              width, nrows, x, y, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The kiso probes (f32).  variant: 0-3 the kiso6 instances
+// <kColU16|kColI32, kIdsGuarded|kIdsUnguarded> as (i16, guarded) = (1, 1),
+// (1, 0), (0, 1), (0, 0) -> 0, 1, 2, 3; 4 kiso7 affine (the production
+// instance), 5 kiso7 ids; 6 / 7 ell_rowsum_mma<2> / <1>.  cols is int32
+// or, for the u16 variants, the unsigned 16-bit offsets; col_base (u16
+// only) one int32 a 128-row block; ids (id variants) one a 128-row output
+// block.  nrows: the rows of y for variants 4, 6, 7, the id table's length
+// for the id variants.  Returns cudaErrorInvalidValue for an unknown
+// variant, or an mma width or row count that is not a multiple of 8 / 16.
+extern "C" int mmp_kiso_spmv_f32(const float* vals, const void* cols,
+                                 const int* col_base, const int* ids,
+                                 int width, int nrows, const float* x,
+                                 float* y, int variant, void* stream) {
+  const auto* u16 = static_cast<const unsigned short*>(cols);
+  const auto* i32 = static_cast<const int*>(cols);
+  switch (variant) {
+    case 0:
+      return launch_ell_spmv<float, kBase, kColU16, kIdsGuarded>(
+          vals, u16, col_base, ids, width, nrows, x, y, stream);
+    case 1:
+      return launch_ell_spmv<float, kBase, kColU16, kIdsUnguarded>(
+          vals, u16, col_base, ids, width, nrows, x, y, stream);
+    case 2:
+      return launch_ell_spmv<float, kBase, kColI32, kIdsGuarded>(
+          vals, i32, nullptr, ids, width, nrows, x, y, stream);
+    case 3:
+      return launch_ell_spmv<float, kBase, kColI32, kIdsUnguarded>(
+          vals, i32, nullptr, ids, width, nrows, x, y, stream);
+    case 4:
+      return launch_ell_spmv<float>(vals, i32, nullptr, nullptr, width, nrows,
+                                    x, y, stream);
+    case 5:
+      return launch_ell_spmv<float, kBase, kColI32, kIds>(
+          vals, i32, nullptr, ids, width, nrows, x, y, stream);
+    case 6:
+      return launch_rowsum_mma<2>(vals, i32, width, nrows, x, y, stream);
+    case 7:
+      return launch_rowsum_mma<1>(vals, i32, width, nrows, x, y, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Five kernels (sources in ``meshlessmultigridpoisson_torch/csrc/``) replace
-fourteen Pallas TPU kernels of the reference package and five of its timing
-probes:
+Six kernels (five sources in ``meshlessmultigridpoisson_torch/csrc/``)
+replace fourteen Pallas TPU kernels of the reference package and eight of
+its timing probes:
 
 =================================  ===========================================
 CUDA kernel (role counter)         TPU kernel it replaces
@@ -66,6 +66,17 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``spmvp_nogather``,                the SpMV and its timing-only variants
 ``spmvp_noreduce``,                without the x gather, the row reduction
 ``spmvp_neither``)                 or both (``spmv_probe``; ``probes.kprobe``)
+``ell_spmv`` u16 / i32 columns,    scripts/kiso6.py:98 ``spmv_var``: i16 or
+id table padded with -1, guarded   i32 columns, ``pl.when``-guarded or
+or unguarded (``kiso6_i16_*``,     unguarded padded blocks (``kiso_spmv``;
+``kiso6_i32_*``)                   ``probes.kiso6``)
+``ell_spmv`` affine or id-table    scripts/kiso7.py:86 ``spmv_var``: affine
+rows (``kiso7_affine``,            block ids or ids from a prefetched table
+``kiso7_ids``)                     (``kiso_spmv``; ``probes.kiso7``)
+``ell_rowsum_mma`` 2 / 1 TF32      scripts/kiso8.py:136 ``spmv_var``: row
+passes (``kiso8_mxu``,             sums by the MXU at HIGHEST / DEFAULT,
+``kiso8_mxudef``); ``ell_spmv``    or by VPU rolls (``kiso_spmv``;
+(``kiso8_vpu``)                    ``probes.kiso8``)
 =================================  ===========================================
 
 The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
@@ -125,8 +136,17 @@ COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "probe_nodot": 0, "probe_nogather": 0, "kstream_f32i32": 0,
           "kstream_f32f32": 0, "kstream_f32": 0, "kstream_f32i16": 0,
           "kprobe_stream": 0, "chain_stream": 0, "spmvp_base": 0,
-          "spmvp_nogather": 0, "spmvp_noreduce": 0, "spmvp_neither": 0}
+          "spmvp_nogather": 0, "spmvp_noreduce": 0, "spmvp_neither": 0,
+          "kiso6_i16_guarded": 0, "kiso6_i16_unguarded": 0, "kiso6_i32_guarded": 0,
+          "kiso6_i32_unguarded": 0, "kiso7_affine": 0, "kiso7_ids": 0,
+          "kiso8_mxu": 0, "kiso8_mxudef": 0, "kiso8_vpu": 0}
 SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4", "spmv1", "spmv3")
+
+# launches of the solve's kernels by "role rows x cols" (the rows a launch
+# writes, the length of the vector it reads): None, or, during a measurement
+# run (``apps.cli``'s ``--profile``), a dict; each launch then also runs
+# inside a ``torch.profiler`` range of that name (``_call``)
+SHAPES: dict | None = None
 
 _lock = threading.Lock()
 _lib = None
@@ -218,6 +238,8 @@ def _load():
                                              ctypes.POINTER(i), p]
             lib.mmp_spmv_probe_f32.restype = i
             lib.mmp_spmv_probe_f32.argtypes = [p, p, i, i, p, p, i, p]
+            lib.mmp_kiso_spmv_f32.restype = i
+            lib.mmp_kiso_spmv_f32.argtypes = [p, p, p, p, i, i, p, p, i, p]
             lib.mmp_sweep_probe_f32.restype = i
             lib.mmp_sweep_probe_f32.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
             for name in ("mmp_class_sweep_f32", "mmp_class_sweep_f64"):
@@ -240,6 +262,17 @@ def _check(name: str, t: torch.Tensor, device, dtype=None, shape=None) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _call(role: str, rows: int, cols: int, fn, *args) -> int:
+    """``fn(*args)``, a kernel's C entry; while ``SHAPES`` is a dict, inside
+    a profiler range "role rows x cols", counted there."""
+    if SHAPES is None:
+        return fn(*args)
+    key = f"{role} {rows}x{cols}"
+    SHAPES[key] = SHAPES.get(key, 0) + 1
+    with torch.profiler.record_function(key):
+        return fn(*args)
 
 
 def _launch_ok(rc: int, what: str) -> None:
@@ -296,6 +329,8 @@ def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor):
 
 def ell_spmv(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
     """y = A x, [nrows_pad]; the CUDA kernel for CUDA tensors."""
+    if A.role not in SPMV_ROLES:
+        raise ValueError(f"ell_spmv takes a solve SpMV role, not {A.role!r}")
     if x.device.type == "cpu" and A.vals.device.type == "cpu":
         return ell_spmv_plain(A.vals, A.cols, x)
     dev = A.vals.device
@@ -307,8 +342,9 @@ def ell_spmv(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
     _check("x", x, dev, A.vals.dtype, (A.ncols,))
     y = torch.empty(A.nrows_pad, dtype=x.dtype, device=dev)
     fn = getattr(_load(), f"mmp_ell_spmv_{_SUFFIX[x.dtype]}")
-    rc = fn(A.vals.data_ptr(), A.cols.data_ptr(), A.width, A.nrows_pad,
-            x.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    rc = _call(A.role, A.nrows_pad, A.ncols, fn, A.vals.data_ptr(), A.cols.data_ptr(),
+               A.width, A.nrows_pad, x.data_ptr(), y.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
     _launch_ok(rc, "ell_spmv")
     COUNTS[A.role] += 1
     return y
@@ -375,6 +411,196 @@ def spmv_probe(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
     _launch_ok(rc, "ell_spmv probe")
     COUNTS[A.role] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# the kiso probes: ell_spmv's column formats and row sources, ell_rowsum_mma
+# ---------------------------------------------------------------------------
+
+# role -> the variant of the C entry ``mmp_kiso_spmv_f32``.  The reference's
+# scripts/kiso6.py:98 (i16 or i32 columns; pl.when-guarded or unguarded
+# padded blocks), kiso7.py:86 (affine block ids or ids from a table) and
+# kiso8.py:136 (row sums by the MXU at HIGHEST or DEFAULT, or VPU rolls).
+# "kiso7_affine" and "kiso8_vpu" are the production instance of
+# ``ell_spmv`` under their own roles.  Timing probes only: the solve's
+# ``device_ell`` and ``ell_spmv`` refuse these roles.
+KISO_ROLES = {"kiso6_i16_guarded": 0, "kiso6_i16_unguarded": 1,
+              "kiso6_i32_guarded": 2, "kiso6_i32_unguarded": 3,
+              "kiso7_affine": 4, "kiso7_ids": 5, "kiso8_mxu": 6,
+              "kiso8_mxudef": 7, "kiso8_vpu": 4}
+KISO_U16 = ("kiso6_i16_guarded", "kiso6_i16_unguarded")
+KISO_PADDED_IDS = KISO_U16 + ("kiso6_i32_guarded", "kiso6_i32_unguarded")
+KISO_GUARDED = ("kiso6_i16_guarded", "kiso6_i32_guarded")
+KISO_MMA = {"kiso8_mxu": 2, "kiso8_mxudef": 1}  # role -> TF32 passes
+KISO_BLOCK = 128  # rows of an id-table block and of a u16 base column
+KISO_ID_PAD = 8  # id tables pad to a multiple of 8 blocks (the reference's MB)
+KISO_MMA_K = 8  # entries a row per mma chunk: the mma widths pad to it
+U16_MAX_SPAN = 65535  # largest column span of a block in the u16 format
+
+
+@dataclasses.dataclass(frozen=True)
+class KisoEll:
+    """Row-major ELL of a kiso role (``device_kiso``).
+
+    ``cols``: global int32 columns, or (``KISO_U16`` roles) int16 tensors
+    holding each entry's unsigned 16-bit offset from ``col_base`` of its
+    128-row block.  ``ids`` (``KISO_PADDED_IDS`` and "kiso7_ids"): y block
+    j is A block ``ids[j]``; -1 marks a padded block.  ``KISO_MMA`` roles
+    carry a width padded with zero values and a valid column to a multiple
+    of 8.
+    """
+
+    vals: torch.Tensor  # [nrows_pad, width] f32
+    cols: torch.Tensor  # [nrows_pad, width] int32, or int16 (u16 offsets)
+    col_base: torch.Tensor | None  # [nrows_pad / 128] int32
+    ids: torch.Tensor | None  # [output blocks] int32
+    ncols: int
+    role: str
+
+    @property
+    def nrows_pad(self) -> int:
+        return self.vals.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.vals.shape[1]
+
+    @property
+    def nrows_out(self) -> int:
+        """Rows the kernel's output holds (the id table's blocks)."""
+        return self.nrows_pad if self.ids is None else self.ids.numel() * KISO_BLOCK
+
+
+def u16_offsets(cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int16 tensor of the unsigned offsets, [nb] int32 base columns) of
+    global int32 columns ``cols`` [nb * 128, width]: base = the block's
+    least column, offset = column - base.  Raises for a block whose columns
+    span more than 65,535 (the format never wraps)."""
+    nr = cols.shape[0]
+    if nr % KISO_BLOCK:
+        raise ValueError(f"u16 columns need a multiple of {KISO_BLOCK} rows, got {nr}")
+    cb = cols.reshape(nr // KISO_BLOCK, -1).to(torch.int32)
+    base = cb.min(dim=1).values
+    span = cb.max(dim=1).values - base
+    if span.numel() and int(span.max()) > U16_MAX_SPAN:
+        blk = int(span.argmax())
+        raise ValueError(f"block {blk} spans {int(span[blk])} columns, more than "
+                         f"the u16 format's {U16_MAX_SPAN}")
+    off = cb - base[:, None]
+    off = torch.where(off > 32767, off - 65536, off).to(torch.int16)
+    return off.reshape(cols.shape).contiguous(), base.contiguous()
+
+
+def kiso_ids(nb: int, padded: bool) -> torch.Tensor:
+    """The id table: blocks 0 .. nb - 1, then (``padded``) -1 up to a
+    multiple of 8 blocks."""
+    ids = torch.arange(nb, dtype=torch.int32)
+    if padded:
+        ids = torch.cat([ids, torch.full((-nb % KISO_ID_PAD,), -1, dtype=torch.int32)])
+    return ids
+
+
+def device_kiso(ell: EllMatrix, device, role: str) -> KisoEll:
+    """Host prep of a kiso role (f32): global columns, then the role's u16
+    offsets and base columns, padded id table or mma width."""
+    if role not in KISO_ROLES:
+        raise ValueError(f"{role!r} is not a kiso role")
+    vals = ell.vals.to(torch.float32)
+    cols = global_cols(ell).to(torch.int32)
+    col_base = ids = None
+    if role in KISO_MMA:
+        pad = -vals.shape[1] % KISO_MMA_K
+        vals = torch.nn.functional.pad(vals, (0, pad))
+        cols = torch.cat([cols, cols[:, -1:].expand(-1, pad)], dim=1)
+    if role in KISO_U16:
+        cols, col_base = u16_offsets(cols)
+    if role in KISO_PADDED_IDS or role == "kiso7_ids":
+        if vals.shape[0] % KISO_BLOCK:
+            raise ValueError(f"id tables need a multiple of {KISO_BLOCK} rows")
+        ids = kiso_ids(vals.shape[0] // KISO_BLOCK, role in KISO_PADDED_IDS)
+
+    def dev(t):
+        return None if t is None else t.to(device).contiguous()
+
+    return KisoEll(vals=dev(vals), cols=dev(cols), col_base=dev(col_base), ids=dev(ids),
+                   ncols=ell.ncols, role=role)
+
+
+def kiso_global_cols(A: KisoEll) -> torch.Tensor:
+    """[nrows_pad, width] int64 global columns (u16: base + offset)."""
+    if A.col_base is None:
+        return A.cols.long()
+    off = A.cols.long() & 0xFFFF
+    return (off.view(-1, KISO_BLOCK, A.width) + A.col_base.long()[:, None, None]).view(
+        A.cols.shape)
+
+
+def tf32_rna(p: torch.Tensor) -> torch.Tensor:
+    """f32 ``p`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest,
+    ties away from zero, on the 13 low mantissa bits (finite values)."""
+    b = p.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def kiso_spmv_plain(A: KisoEll, x: torch.Tensor, out: torch.Tensor | None = None):
+    """Plain version of each kiso role, as ``kiso_spmv`` returns it.
+
+    Per entry ``v * x[col]``; "kiso8_mxudef" rounds each product to TF32
+    (``tf32_rna``) before the f32 row sum, the other roles sum the f32
+    products.  The id roles: output block j is A block ``ids[j]``'s; a
+    padded block (id -1) is left as it was (guarded: ``out``'s values, or 0)
+    or takes block 0's rows (unguarded: ``max(id, 0)``)."""
+    if A.role not in KISO_ROLES:
+        raise ValueError(f"{A.role!r} is not a kiso role")
+    prod = A.vals * x[kiso_global_cols(A)]
+    if KISO_MMA.get(A.role) == 1:
+        prod = tf32_rna(prod)
+    rows = prod.sum(dim=1)
+    if A.ids is None:
+        y = rows
+    else:
+        ids = A.ids.long()
+        y = torch.zeros(A.nrows_out, dtype=rows.dtype, device=rows.device) \
+            if out is None else out.clone()
+        take = ids >= 0 if A.role in KISO_GUARDED else torch.ones_like(ids, dtype=torch.bool)
+        yb, rb = y.view(-1, KISO_BLOCK), rows.view(-1, KISO_BLOCK)
+        yb[take] = rb[ids.clamp(min=0)[take]]
+    if out is not None:
+        out.copy_(y)
+        return out
+    return y[:A.nrows_pad]
+
+
+def kiso_spmv(A: KisoEll, x: torch.Tensor, out: torch.Tensor | None = None):
+    """One launch of a kiso role's kernel, f32.  Returns y[:nrows_pad]; or
+    writes all ``A.nrows_out`` rows into ``out`` and returns it, padded
+    blocks included (guarded: untouched)."""
+    if A.role not in KISO_ROLES:
+        raise ValueError(f"{A.role!r} is not a kiso role")
+    if x.device.type == "cpu" and A.vals.device.type == "cpu":
+        return kiso_spmv_plain(A, x, out)
+    dev, f32 = A.vals.device, torch.float32
+    if dev.type != "cuda" or A.vals.dtype != f32:
+        raise ValueError(f"kiso_spmv takes f32 CUDA tensors, got {A.vals.dtype} on {dev}")
+    _check("vals", A.vals, dev)
+    _check("cols", A.cols, dev, torch.int16 if A.role in KISO_U16 else torch.int32,
+           A.vals.shape)
+    _check("x", x, dev, f32, (A.ncols,))
+    if A.role in KISO_U16:
+        _check("col_base", A.col_base, dev, torch.int32, (A.nrows_pad // KISO_BLOCK,))
+    if A.ids is not None:
+        _check("ids", A.ids, dev, torch.int32)
+    y = torch.empty(A.nrows_out, dtype=f32, device=dev) if out is None else out
+    _check("out", y, dev, f32, (A.nrows_out,))
+    nrows = A.nrows_pad if A.ids is None else A.ids.numel()
+    rc = _load().mmp_kiso_spmv_f32(
+        A.vals.data_ptr(), A.cols.data_ptr(),
+        None if A.col_base is None else A.col_base.data_ptr(),
+        None if A.ids is None else A.ids.data_ptr(), A.width, nrows, x.data_ptr(),
+        y.data_ptr(), KISO_ROLES[A.role], torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, f"kiso {A.role}")
+    COUNTS[A.role] += 1
+    return y if out is not None else y[:A.nrows_pad]
 
 
 # ---------------------------------------------------------------------------
@@ -474,10 +700,10 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     for p in range(sw.nphases):
         ids = sw.phase(p)
-        rc = fn(sw.A.vals.data_ptr(), sw.A.cols.data_ptr(), sw.A.width,
-                b.data_ptr(), sw.lagc.data_ptr(), xl.data_ptr(),
-                sw.kT.data_ptr(), ids.data_ptr(), ids.shape[0],
-                int(sw.serial), x.data_ptr(), stream)
+        rc = _call(sw.role, ids.shape[0] * LANES, n_pad, fn, sw.A.vals.data_ptr(),
+                   sw.A.cols.data_ptr(), sw.A.width, b.data_ptr(), sw.lagc.data_ptr(),
+                   xl.data_ptr(), sw.kT.data_ptr(), ids.data_ptr(), ids.shape[0],
+                   int(sw.serial), x.data_ptr(), stream)
         _launch_ok(rc, "block_oneshot_sweep")
         COUNTS[sw.role] += 1
     return x
@@ -636,10 +862,10 @@ def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
     _check("x_lag", xl, dev, dt, ())
     fn = getattr(_load(), f"mmp_class_sweep_{_SUFFIX[dt]}")
-    rc = fn(sw.A.vals.data_ptr(), sw.A.cols.data_ptr(), sw.A.width, n_pad,
-            sw.class_size, sw.diag.data_ptr(), b.data_ptr(), sw.mask.data_ptr(),
-            sw.omega.data_ptr(), sw.lagc.data_ptr(), xl.data_ptr(), x.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = _call(sw.role, n_pad, n_pad, fn, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
+               sw.A.width, n_pad, sw.class_size, sw.diag.data_ptr(), b.data_ptr(),
+               sw.mask.data_ptr(), sw.omega.data_ptr(), sw.lagc.data_ptr(), xl.data_ptr(),
+               x.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _launch_ok(rc, "class_sor_sweep")
     COUNTS[sw.role] += 1
     return x
@@ -743,10 +969,10 @@ def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Te
     fn = getattr(_load(), f"mmp_compact_rows_{_SUFFIX[dt]}")
     # the scatter reads no b: hand it x, so no read pointer aliases out
     b_in = x if mode == 2 else b
-    rc = fn(C.vals.data_ptr(), C.cols.data_ptr(), C.width, C.m_pad,
-            C.rows.data_ptr(), C.diag.data_ptr(), C.n_pad, x.data_ptr(),
-            b_in.data_ptr(), out.data_ptr(), mode,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = _call(C.role, C.m_pad, C.n_pad, fn, C.vals.data_ptr(), C.cols.data_ptr(),
+               C.width, C.m_pad, C.rows.data_ptr(), C.diag.data_ptr(), C.n_pad,
+               x.data_ptr(), b_in.data_ptr(), out.data_ptr(), mode,
+               torch.cuda.current_stream(dev).cuda_stream)
     _launch_ok(rc, "compact_rows")
     COUNTS[C.role] += 1
     return out

@@ -70,8 +70,9 @@ def build_operator(n: int = N, seed: int = 0):
     return ell_from_csr(synthetic_banded_csr(n, K, BAND, seed), block_rows=128)
 
 
-def run(n: int = N, iters: int = ITERS, seed: int = 0) -> dict:
-    """Build, check and time; returns the result line as a dict."""
+def run(n: int = N, iters: int = ITERS, seed: int = 0, ell=None) -> dict:
+    """Build, check and time; returns the result line as a dict.  ``ell``:
+    the operator's ELL (``build_operator``), built by the caller."""
     if not torch.cuda.is_available():
         raise SystemExit("the kprobe probe times on the card: "
                          "torch.cuda.is_available() is False")
@@ -111,8 +112,10 @@ def run(n: int = N, iters: int = ITERS, seed: int = 0) -> dict:
     del v, c
 
     t0 = time.perf_counter()
-    ell = build_operator(n, seed)
+    if ell is None:
+        ell = build_operator(n, seed)
     setup_s = time.perf_counter() - t0
+    n = ell.nrows
     nnz = n * K
     log(f"host setup {setup_s:.1f} s: n {n}, k {K}, band {BAND}, ELL width {ell.width}")
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(ell.ncols)).to(dev, f32)

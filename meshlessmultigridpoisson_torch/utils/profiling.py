@@ -6,7 +6,7 @@ matvec and smoother sweep are timed on the card with CUDA events
 count and a byte model of what each function needs: its nonzeros and its
 vectors, no padding (``spmv_bytes``, ``sweep_bytes``, ``compact_bytes``;
 for the timing probes, each mode's or table mix's own work:
-``probe_bytes``, ``spmv_probe_bytes``, ``stream_bytes``).  Below
+``probe_bytes``, ``spmv_probe_bytes``, ``stream_bytes``, ``kiso_bytes``).  Below
 ``ENQUEUE_MS`` a chain of launches times the host's enqueue, and
 ``device_ms`` reads the device time per call from ``torch.profiler``.
 Beside each time stands its bound: the
@@ -30,11 +30,13 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import ClassSweep
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # memory bytes/s and arithmetic FLOP/s outside the tensor cores per dtype
 # (the kernels multiply bf16 K in f32 on the CUDA cores); "bf16_tensor"
-# the tensor cores' bf16 rate (``probes.chaintime``'s matmul calibration).
+# the tensor cores' bf16 rate (``probes.chaintime``'s matmul calibration),
+# "tf32_tensor" their TF32 rate (``ell_rowsum_mma``'s row sums).
 PEAKS = {
     "NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, torch.float32: 67e12,
                               torch.float64: 34e12,
-                              "bf16_tensor": 989e12},  # H100 SXM
+                              "bf16_tensor": 989e12,
+                              "tf32_tensor": 495e12},  # H100 SXM
 }
 
 
@@ -54,10 +56,13 @@ def card() -> dict[str, str]:
             "power_limit": smi.stdout.strip().split(",")[-1].strip()}
 
 
-def bound_ms(nbytes: float, flops: float, dtype, name: str) -> tuple[float, str]:
-    """(least ms for the work, "bytes" or "operations": which bounds it)."""
+def bound_ms(nbytes: float, flops, dtype, name: str) -> tuple[float, str]:
+    """(least ms for the work, "bytes" or "operations": which bounds it).
+    ``flops``: operations at ``dtype``'s rate, or a dict of them by
+    ``PEAKS`` key (units that run side by side: the slowest bounds)."""
     pk = peaks(name)
-    t_b, t_f = nbytes / pk["bytes"], flops / pk[dtype]
+    ops = flops if isinstance(flops, dict) else {dtype: flops}
+    t_b, t_f = nbytes / pk["bytes"], max(n / pk[k] for k, n in ops.items())
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -168,6 +173,56 @@ def spmv_probe_flops(A) -> int:
     multiply by 1e-9 on top."""
     nogather = A.role in ("spmvp_nogather", "spmvp_neither")
     return (3 if nogather else 2) * _nnz(A.vals)
+
+
+def _kiso_pad_work(A) -> int:
+    """Padded output blocks that do real work: an unguarded one computes
+    block 0's rows again; a guarded one reads its id and stops."""
+    from meshlessmultigridpoisson_torch.ops.gpu_kernels import KISO_GUARDED
+
+    if A.ids is None or A.role in KISO_GUARDED:
+        return 0
+    return int((A.ids < 0).sum())
+
+
+def kiso_bytes(A) -> int:
+    """Bytes one launch of a kiso role (``A`` a KisoEll) needs: per nonzero
+    its f32 value and its column (4 B int32, or 2 B for the u16 roles, which
+    add 4 B of base column a block); the id roles 4 B an id; x read once,
+    y written once.  An unguarded padded block does real work and counts
+    it: block 0's nonzeros and base column again and 128 rows of y.  The
+    mma roles (widths padded to a multiple of 8) count the nonzeros only."""
+    from meshlessmultigridpoisson_torch.ops.gpu_kernels import KISO_U16
+
+    u16 = A.role in KISO_U16
+    nz = A.vals != 0
+    pad = _kiso_pad_work(A)
+    nnz = int(nz.sum()) + pad * int(nz[:128].sum())
+    out_rows = A.nrows_pad if A.ids is None else 128 * (int((A.ids >= 0).sum()) + pad)
+    n = nnz * (6 if u16 else 8) + 4 * A.ncols + 4 * out_rows
+    if u16:
+        n += 4 * (A.nrows_pad // 128 + pad)
+    if A.ids is not None:
+        n += 4 * A.ids.numel()
+    return n
+
+
+def kiso_flops(A):
+    """Operations one launch of a kiso role needs: a multiply and an add
+    per nonzero (unguarded padded blocks: block 0's again).  The mma roles
+    (a dict by ``PEAKS`` key): a row's entries padded with zeros to a
+    multiple of 8, the mma's chunk, each count as a multiply on the CUDA
+    cores (f32), plus, for two passes, the subtract of the hi/lo split; and
+    as one tensor-core add a pass (TF32: column 0 of the product; the other
+    seven columns of the all-ones B repeat it and are not counted)."""
+    from meshlessmultigridpoisson_torch.ops.gpu_kernels import KISO_MMA
+
+    nz = A.vals != 0
+    if A.role in KISO_MMA:
+        passes = KISO_MMA[A.role]
+        mults = int(((nz.sum(dim=1) + 7) // 8 * 8).sum())
+        return {torch.float32: mults * passes, "tf32_tensor": mults * passes}
+    return 2 * (int(nz.sum()) + _kiso_pad_work(A) * int(nz[:128].sum()))
 
 
 def stream_bytes(v: torch.Tensor, c, tile_rows: int) -> int:

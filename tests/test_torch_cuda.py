@@ -21,7 +21,11 @@ probe modes (``spmv_probe``) against their plain versions: the SpMV's f32
 tolerance.  ``class_sor_sweep`` (K-free class SOR) against
 its plain version: the sweep's tolerances, on the fixture (unpermuted:
 rows of one 8-row tile couple), on ``probes.realsparsity``'s 4,096-row
-pattern and on a (block, class)-permuted solve level.
+pattern and on a (block, class)-permuted solve level.  The kiso roles
+(``kiso_spmv``) against their plain versions: the SpMV's f32 tolerance,
+``kiso8_mxudef`` against its TF32 plain version (the same rounded
+products, summed in another order); on the fixture, whose 11 blocks pad to
+16, so that the padded blocks show what guarded and unguarded write.
 """
 
 import numpy as np
@@ -536,5 +540,64 @@ def test_stream_probes_on_card():
     assert len(res[0]["kernels"]) == 13 and len(res[1]["kernels"]) == 8
     assert set(res[1]["spmv_split"]) == {"base_ms", "gather_ms", "reduction_ms",
                                          "neither_ms"}
+    for r in [row for p in res for row in p["kernels"].values()]:
+        assert 0 < r["bound_ms"] <= 1.05 * r["ms"]
+
+
+@pytest.mark.parametrize("role", sorted(gk.KISO_ROLES))
+def test_kiso_roles_count_and_match_plain(et, role):
+    """Each role once on the fixture (11 blocks; the kiso6 id tables pad to
+    16): every output row, padded blocks included, against the plain
+    version; guarded padded blocks keep what ``out`` held, unguarded ones
+    hold block 0's rows."""
+    A = gk.device_kiso(et, "cuda", role)
+    x = _rand(A.ncols, torch.float32, 27)
+    out = torch.full((A.nrows_out,), 7.0, device="cuda")
+    before = dict(gk.COUNTS)
+    gk.kiso_spmv(A, x, out=out)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        role: 1}
+    ref = gk.kiso_spmv_plain(A, x, out=torch.full_like(out, 7.0))
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    if role in gk.KISO_PADDED_IDS:
+        pad = out[et.nrows_pad:]
+        assert pad.numel() == 5 * 128
+        want = (torch.full_like(pad, 7.0) if role in gk.KISO_GUARDED
+                else out[:128].repeat(5))
+        assert torch.equal(pad, want)
+    y = gk.kiso_spmv(A, x)
+    assert y.shape == (et.nrows_pad,)
+    if role in ("kiso7_affine", "kiso8_vpu"):  # the production instance
+        assert torch.equal(y, gk.ell_spmv(gk.device_ell(et, torch.float32, "cuda", "spmv6"), x))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_ell_spmv_production_width_not_a_multiple_of_8(dtype, tol):
+    """The production instances after the kiso axes: the kiso operator's
+    width (70 entries a row at most) is no multiple of 8."""
+    from meshlessmultigridpoisson_torch.probes import kiso
+
+    ell = kiso.build_operator(n=4096)
+    assert ell.width % 8 != 0
+    A = gk.device_ell(ell, dtype, "cuda", "spmv6")
+    x = _rand(A.ncols, dtype, 28)
+    y = gk.ell_spmv(A, x)
+    yp = gk.ell_spmv_plain(A.vals, A.cols, x)
+    assert float((y - yp).abs().max()) <= tol * float(yp.abs().max())
+
+
+def test_kiso_probes_on_card():
+    """The three kiso probes at a small size on one shared operator: every
+    role launched, each held against its plain version inside the probe,
+    times at or above bound."""
+    from meshlessmultigridpoisson_torch.probes import kiso, kiso6, kiso7, kiso8
+
+    ell = kiso.build_operator(n=16384)
+    gk.reset_counts()
+    res = [p.run(n=16384, iters=2, ell=ell) for p in (kiso6, kiso7, kiso8)]
+    assert all(gk.COUNTS[r] > 0 for r in list(gk.KISO_ROLES) + ["spmv4"])
+    assert [len(r["kernels"]) for r in res] == [4, 3, 3]
+    assert res[0]["padded_blocks"] == 0 and res[0]["max_block_span"] <= gk.U16_MAX_SPAN
     for r in [row for p in res for row in p["kernels"].values()]:
         assert 0 < r["bound_ms"] <= 1.05 * r["ms"]

@@ -33,7 +33,8 @@ SLICE_MODULES = (
     "interop", "models.fracstep", "models.fracstep_gpu", "geometry.msh",
     "bench", "utils.profiling", "probes.realsparsity", "probes.ktime",
     "probes.kexp", "probes.ksweepprobe", "probes.kstream", "probes.kprobe",
-    "probes.chaintime",
+    "probes.chaintime", "probes.kiso6", "probes.kiso7", "probes.kiso8",
+    "probes.launchrank",
 )
 
 
