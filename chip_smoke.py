@@ -19,16 +19,28 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    version on the same inputs on the card: on the Dirichlet hierarchy
    ``ell_spmv`` (f32 and f64) on the fine and coarsest levels, one
    restriction and one prolongation; ``block_oneshot_sweep`` (f32 and f64)
-   on the fine level in colored order (``sweep8``) and in storage order
-   (``sweep6``) and on the coarsest level in storage order (``sweep7``);
-   the bf16-K instance of all three against the bf16 plain version;
+   on the fine level in colored order (``sweep8``: the fused smoother's
+   ``colored_smooth``, one sweep; ``sweep8_percolor``: the parent design,
+   one launch a color) and in storage order (``sweep6``) and on the
+   coarsest level in storage order (``sweep7``: ``coarse_smooth``, one
+   sweep); the bf16-K instance of them against the bf16 plain version;
+   the fused smoother (``block_smooth``, ``csrc/block_smooth.cu``) on the
+   Dirichlet fine and coarsest levels in f32, f64 and bf16 K: one call of
+   the level's 5 sweeps held against its plain version (counted once, a
+   rerun bit-identical), then timed against the parent design's loop of
+   launches (per-color sweeps or the ``sweep6`` chain, torch relax,
+   ``compact_rows``) in turns loop, fused, fused, loop;
    ``stream_ceiling`` at the bench's shape against its plain reduction;
    ``class_sor_sweep`` (f32 and f64, the v2-fallback smoother) and
    ``ell_spmv`` in its ``spmv2`` role on the Dirichlet fine level;
    on the Neumann hierarchy ``compact_rows`` (f32 and f64) on the fine
    level's boundary table (re-solve) and condensation table (pushdown),
-   and ``class_sor_sweep`` (f32, f64) on the fine level (frozen rows,
-   Lagrange column, x_lag 0.3).
+   ``class_sor_sweep`` (f32, f64) on the fine level (frozen rows,
+   Lagrange column, x_lag 0.3), ``ell_spmv`` (f32, f64) on the fine
+   level's matvec (with the ``torch.sparse`` yardstick), and the fused
+   smoother on the fine and
+   coarsest levels (f32, f64, bf16 K; with the Lagrange relax and the
+   boundary re-solve, x_lag 0.3, b_lag -0.4) as on the Dirichlet levels.
    Prints each comparison's relative error, the kernel's and the plain
    version's time, the kernel's bound (bytes over 3.35 TB/s or operations
    over the arithmetic peak, utils/profiling.py) and, for the SpMV and
@@ -49,7 +61,14 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ``[v2-fallback x4]``, no K); every kernel role of the path launched
    (exact: ``spmv6``, ``sweep7``, ``sweep6``, with ``spmv8`` and ``sweep8``
    at 0; v2: ``sweep2``, ``spmv2``, ``spmv6``, with ``sweep6/7/8`` and
-   ``spmv8`` at 0; Neumann adds both ``compact_rows`` roles); relative L1
+   ``spmv8`` at 0; Neumann adds both ``compact_rows`` roles;
+   ``sweep8_percolor`` at 0 everywhere); one launch a smoother call on a
+   ``sweep8``/``sweep7`` level: ``sweep8`` = 3 x ``sweep7`` launches (two
+   calls a V-cycle on each colored level and on the coarsest; exact:
+   ``sweep6`` = 15 x ``sweep7``, five sweeps a call on three levels), so
+   V-cycles = ``sweep7`` / 2; Neumann: ``bound2`` at most 3 a V-cycle (the
+   V-cycle-start, preconditioner and Krylov re-solves of the fine level;
+   the smoother's re-solves are inside its launches); relative L1
    residual < 1e-8, re-checked
    from the returned (x, x_lag) with the plain f64 SpMV, border row
    included; L1 error < 1e-6.  After the exact and v2 paths' counts are
@@ -62,17 +81,22 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    derivative operators against their plain versions; then ``run_ns``
    in-process for 12 steps from rest (counts set to 0 before,
    read after), checking level kinds ``[v7-exact x3, v8-colored]``, the
-   path's roles (SpMV, sweeps, ``bound2``, ``ppe2``) launched, every
+   path's roles (SpMV, sweeps, ``bound2``, ``ppe2``) launched, one launch
+   a smoother call (``sweep7`` = 3 x ``sweep8``: V-cycles = ``sweep7`` /
+   6), ``bound2`` at most 3 a V-cycle, every
    fs_residual finite, the steps 0, 4, 8, ... matching the reference's TPU
    record ``results/ns_tpu_r5.json`` within 2e-3 relative, and the last
    step's PPE solve (before the p_relax blend) re-checked with a plain f64
    composition of the compatible operator below 1e-9;
-5. the kernel bench (``meshlessmultigridpoisson_torch.bench``) in-process
-   on its 1M-row operator (counts set to 0 before, read after; the bench
-   holds the stream probe at its timed depth and one sweep of each timed
-   kind against their plain versions before it times them): prints its
-   JSON line; checks the SpMV spot check, ``stream14``, ``spmv6``,
-   ``sweep6`` and ``sweep8`` launched, and every ``pct_of_bound`` <= 105;
+5. on the bench's 1M-row operator (5 colors of ~1,640 blocks), the fused
+   colored smoother in f32, f64 and bf16 K as on the slice's levels (5
+   sweeps, no border), then the kernel bench
+   (``meshlessmultigridpoisson_torch.bench``) in-process on it (counts set
+   to 0 before, read after; the bench holds the stream probe at its timed
+   depth and one sweep of each timed kind against their plain versions
+   before it times them): prints its JSON line; checks the SpMV spot
+   check, ``stream14``, ``spmv6``, ``sweep6``, ``sweep8`` and
+   ``sweep8_percolor`` launched, and every ``pct_of_bound`` <= 105;
 6. on the bench's host operator (built once, before the bench, for the
    bench and both probes): ``probes.kexp`` with 3 iterations (``spmv2``,
    ``spmv3`` and ``spmv1`` at 128- and 256-row blocks, ``sweep1`` at 128),
@@ -142,12 +166,13 @@ ROLES = {
     "sweep6": ("block_oneshot_sweep",
                "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels6.py:515"),
-    "sweep7": ("block_oneshot_sweep",
-               "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+    "sweep7": ("coarse_smooth", "meshlessmultigridpoisson_torch/csrc/block_smooth.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels6.py:812"),
-    "sweep8": ("block_oneshot_sweep",
-               "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+    "sweep8": ("colored_smooth", "meshlessmultigridpoisson_torch/csrc/block_smooth.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels8.py:428"),
+    "sweep8_percolor": ("block_oneshot_sweep",
+                        "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+                        "meshlessmultigridpoisson_tpu/ops/kernels8.py:428"),
     "bound2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
     "push2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
@@ -206,7 +231,16 @@ V2_KERNELS = ["v2-fallback"] * 4
 V2_ROLES = ("spmv2", "spmv6", "sweep2")
 KTIME_N, KTIME_ITERS = 1_048_576, 5
 KTIME_ROLES = ("spmv2", "sweep2", "spmv4", "sweep4", "sweep5")
-BENCH_ROLES = ("spmv6", "sweep6", "sweep8", "stream14")
+BENCH_ROLES = ("spmv6", "sweep6", "sweep8", "sweep8_percolor", "stream14")
+# the parent design of each fused role: the sweep the loop of launches runs
+# in the A/B timing (one launch a color; the single-CTA chain)
+PARENT_ROLE = {"sweep8": "sweep8_percolor", "sweep7": "sweep6"}
+SMOOTH_ITERS = 5  # sweeps a smoother call (every level's default)
+# compact_rows re-solves of the fine level outside the smoother: two a
+# V-cycle (mg/vcycle.py at its start, mg/krylov.py after the
+# preconditioner's), one a Krylov solve; the smoother's own (one a sweep
+# and level before the fused kernels) run inside its launches
+BOUND2_PER_VCYCLE = 3
 # the probes on the bench's 1M-row operator (built once for all three)
 KEXP_ITERS = 3
 KEXP_ROLES = ("spmv1", "spmv2", "spmv3", "sweep1")
@@ -317,6 +351,28 @@ def compatible_residual(prob, b, x, x_lag) -> float:
     return float(((b - y).abs().sum() + r_lag.abs()) / b.abs().sum())
 
 
+# the sweep role of each level kind (a v7-exact level whose vectors fit
+# coarse_smooth's shared memory: every level of the slice and NS ladders)
+KIND_ROLE = {"v8-colored": "sweep8", "v7-exact": "sweep7", "v6-oneshot": "sweep6"}
+
+
+def vcycles(kinds, counts) -> int:
+    """V-cycles of a run from its ``sweep7`` launches, after checking that
+    every smoother call on a ``sweep8``/``sweep7`` level was one launch: a
+    V-cycle makes two calls on each level (pre and post smoothing; the
+    coarsest is smoothed twice), one launch each there, 5 (one a sweep) on
+    a ``sweep6`` level, and no ``sweep8_percolor`` launch."""
+    n = {r: sum(KIND_ROLE.get(k) == r for k in kinds) for r in ("sweep8", "sweep7", "sweep6")}
+    v, rem = divmod(counts["sweep7"], 2 * n["sweep7"])
+    want = {"sweep8": 2 * n["sweep8"] * v, "sweep7": 2 * n["sweep7"] * v,
+            "sweep6": 2 * SMOOTH_ITERS * n["sweep6"] * v, "sweep8_percolor": 0}
+    got = {r: counts[r] for r in want}
+    if rem or got != want:
+        raise AssertionError(f"smoother launches {got} are not those of {v} V-cycles "
+                             f"with one launch a fused smoother call: {want}")
+    return v
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser()
@@ -392,9 +448,10 @@ def main(argv=None) -> int:
     results = {r: [] for r in ROLES}
 
     def record(role, label, tol_key, err, scale, ms, plain_ms, nbytes, flops,
-               dtype, library_ms=None, device=None):
+               dtype, library_ms=None, device=None, extra=None):
         """``device``: (kernel, library) device ms per call, for a kernel
-        whose chain time is the host's enqueue rate."""
+        whose chain time is the host's enqueue rate; ``extra``: more keys
+        for the kernels line."""
         rel = err / max(scale, 1e-300)
         tol = TOL[tol_key]
         b_ms, by = pf.bound_ms(nbytes, flops, dtype, card_name)
@@ -408,7 +465,8 @@ def main(argv=None) -> int:
                                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=by, library_ms=library_ms,
                                   device_ms=None if device is None else device[0],
-                                  library_device_ms=None if device is None else device[1]))
+                                  library_device_ms=None if device is None else device[1],
+                                  **(extra or {})))
         if not rel <= tol:
             raise AssertionError(f"{label}: relative error {rel:.3e} > {tol:.0e}")
 
@@ -461,8 +519,9 @@ def main(argv=None) -> int:
             dt, scale = "bf16k", float((xp - x0).abs().max())
         else:
             dt, scale = dname(dtype), float(xp.abs().max())
-        record(sw.role, f"block_oneshot_sweep {dt} {label} "
-               f"({sw.nphases} launches)", ("sweep", dt), err, scale, ms, pms,
+        launches = 1 if sw.role in gk.FUSED_SWEEP_ROLES else sw.nphases
+        record(sw.role, f"{ROLES[sw.role][0]} {dt} {label}, one sweep "
+               f"({launches} launches)", ("sweep", dt), err, scale, ms, pms,
                pf.sweep_bytes(sw), pf.sweep_flops(sw), dtype)
 
     def check_class_sweep(label, sw, x_lag):
@@ -490,6 +549,69 @@ def main(argv=None) -> int:
                float(xp.abs().max()), ms, pms, pf.sweep_bytes(sw), pf.sweep_flops(sw),
                dtype)
 
+    def check_smooth(label, sw, lag_row=None, bound=None, omega=1.4,
+                     iters=SMOOTH_ITERS):
+        """One fused smoother call (``iters`` sweeps, with the relax given
+        ``lag_row`` and the re-solve given ``bound``; x_lag 0.3, b_lag -0.4)
+        against its plain version: counted once, a rerun bit-identical, x
+        and x_lag within the sweep's tolerance.  Then one call timed both
+        ways in turns, the parent design's loop of launches and the fused
+        launch: loop, fused, fused, loop."""
+        dtype = sw.A.vals.dtype
+        n = sw.A.nrows_pad
+        x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        xl0 = 0.3 if lag_row is not None else 0.0
+        xl = torch.tensor(xl0, dtype=dtype, device=dev)
+        bl = torch.tensor(-0.4, dtype=dtype, device=dev)
+        args = (b, bl, iters, omega, lag_row, bound)
+        before = gk.COUNTS[sw.role]
+        out, out_l = gk.block_smooth(sw, x0, xl, *args)
+        torch.cuda.synchronize()
+        if gk.COUNTS[sw.role] != before + 1:
+            raise AssertionError(f"block_smooth {label}: not one launch counted")
+        staging = gk.SMOOTH_INFO[sw.role]
+        again, again_l = gk.block_smooth(sw, x0, xl, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(again, out) and torch.equal(again_l, out_l)):
+            raise AssertionError(f"block_smooth {label}: a rerun gave other bits")
+        ref, ref_l = gk.block_smooth_plain(sw, x0, xl, *args)
+        bf = sw.kT.dtype == torch.bfloat16
+        dt = "bf16k" if bf else dname(dtype)
+        scale = float((ref - x0).abs().max() if bf else ref.abs().max())
+        scale_l = abs(float(ref_l - xl0) if bf else float(ref_l))
+        err_l = abs(float(out_l - ref_l))
+        if lag_row is not None and not err_l <= TOL[("sweep", dt)] * scale_l:
+            raise AssertionError(f"block_smooth {label}: x_lag {float(out_l)} against "
+                                 f"{float(ref_l)}")
+        psw = dataclasses.replace(sw, role=PARENT_ROLE[sw.role])
+
+        def fused(v):
+            return gk.block_smooth(sw, v, xl, *args)[0]
+
+        def loop(v):
+            return gk.smooth_loop(psw, v, xl, b, bl, iters, omega, lag_row, bound)[0]
+
+        k = 20 if n < 500_000 else 4
+        t = [ms_of(f, x0, k) for f in (loop, fused, fused, loop)]
+        pms = ms_of(lambda v: gk.block_smooth_plain(sw, v, xl, *args)[0], x0, 1)
+        kernel = ROLES[sw.role][0]
+        what = (f"{iters} sweeps" + (", relax" if lag_row is not None else "")
+                + (f", {bound.nrows} boundary rows" if bound is not None else ""))
+        print(f"  A/B one smoother call, {kernel} {dt} {label} ({what}; grid, K and ELL "
+              f"buffers, shared bytes {staging}): loop {t[0]:.4f} / fused {t[1]:.4f} / "
+              f"fused {t[2]:.4f} / loop {t[3]:.4f} ms ({card})", flush=True)
+        record(sw.role, f"{kernel} {dt} {label}, one smoother call ({what})",
+               ("sweep", dt), float((out - ref).abs().max()), scale, (t[1] + t[2]) / 2,
+               pms, pf.smooth_bytes(sw, lag_row, bound),
+               pf.smooth_flops(sw, iters, lag_row, bound), dtype,
+               extra=dict(loop_ms=(t[0] + t[3]) / 2, ab_ms=t, staging=staging,
+                          x_lag_err=err_l))
+
+    def check_level_smooth(label, lv):
+        check_smooth(label, lv.sweep, *pf.level_smooth_args(lv), omega=lv.omega,
+                     iters=lv.iters)
+
     def storage_order(sw, role):
         nb = sw.A.nrows_pad // gk.LANES
         return dataclasses.replace(
@@ -511,6 +633,10 @@ def main(argv=None) -> int:
             check_spmv("spmv6", name, gk.device_ell(ell, dt, dev, "spmv6"))
     check_sweep("fine, colored order", fine32.sweep)
     check_sweep("fine, colored order", fine64.sweep)
+    check_sweep("fine, colored order", dataclasses.replace(fine32.sweep,
+                                                           role="sweep8_percolor"))
+    check_sweep("fine, colored order", dataclasses.replace(fine64.sweep,
+                                                           role="sweep8_percolor"))
     check_sweep("fine, storage order", storage_order(fine32.sweep, "sweep6"))
     check_sweep("fine, storage order", storage_order(fine64.sweep, "sweep6"))
     check_sweep("coarsest, storage order", coarse32.sweep)
@@ -518,6 +644,11 @@ def main(argv=None) -> int:
     check_sweep("fine, colored order", bf16k(fine32.sweep))
     check_sweep("fine, storage order", bf16k(storage_order(fine32.sweep, "sweep6")))
     check_sweep("coarsest, storage order", bf16k(coarse32.sweep))
+    for name, lv in (("Dirichlet fine", fine32), ("Dirichlet fine", fine64),
+                     ("Dirichlet coarsest", coarse32), ("Dirichlet coarsest", coarse64)):
+        check_level_smooth(name, lv)
+        if lv.sweep.A.vals.dtype == torch.float32:
+            check_level_smooth(name, dataclasses.replace(lv, sweep=bf16k(lv.sweep)))
     for dt in (torch.float32, torch.float64):  # the v2-fallback fine level
         v2 = gpu_level_from_operator(hier.levels[-1], dev, dt, use_v6=False)
         if dt == torch.float32:
@@ -586,6 +717,14 @@ def main(argv=None) -> int:
                       gk.device_compact(fine.cond, dt, dev, "push2"))
         check_class_sweep("fine, Neumann", gpu_level_from_operator(
             fine, dev, dt, use_v6=False).sweep, 0.3)
+        for name, op in (("Neumann fine", fine), ("Neumann coarsest", prob.hierarchy.levels[0])):
+            lv = gpu_level_from_operator(op, dev, dt)
+            if name == "Neumann fine":  # the matvec of the f32 inner and f64 outer solves
+                check_spmv(lv.A.role, "Neumann fine matvec", lv.A)
+            check_level_smooth(name, lv)
+            if dt == torch.float32:
+                check_level_smooth(name, dataclasses.replace(lv, sweep=bf16k(lv.sweep)))
+            del lv
     del prob, fine
     torch.cuda.empty_cache()
 
@@ -627,9 +766,18 @@ def main(argv=None) -> int:
         idle = [r for r in roles if launches[path][r] == 0 and (full or r != "sweep6")]
         if idle:
             return fail(f"{path}: kernel roles never launched on the main path: {idle}")
-        busy = [r for r in idle_roles if launches[path][r] != 0]
+        busy = [r for r in idle_roles + ("sweep8_percolor",) if launches[path][r] != 0]
         if busy:
             return fail(f"{path}: roles off this path launched: {busy}")
+        if path != "v2":
+            v = vcycles(kinds, launches[path])
+            print(f"{path}: {v} V-cycles; launches a V-cycle: "
+                  + ", ".join(f"{r} {launches[path][r] / v:g}" for r in
+                              ("sweep8", "sweep7", "sweep6", "bound2", "spmv8", "spmv6")),
+                  flush=True)
+            if not launches[path]["bound2"] <= BOUND2_PER_VCYCLE * v:
+                return fail(f"{path}: {launches[path]['bound2']} bound2 launches in {v} "
+                            "V-cycles: the smoother's re-solves are not all fused")
         want_k = {"fast-k": "torch.bfloat16", "v2": None}.get(path, "torch.float32")
         if any(d != want_k for d in rec.extra["level_k_dtypes"]):
             return fail(f"{path}: K dtypes {rec.extra['level_k_dtypes']}, want {want_k}")
@@ -706,6 +854,13 @@ def main(argv=None) -> int:
     idle = [r for r in NS_ROLES if launches["ns"][r] == 0]
     if idle:
         return fail(f"ns: kernel roles never launched on the main path: {idle}")
+    v = vcycles(rec.extra["level_kernels"], launches["ns"])
+    print(f"ns: {v} V-cycles; launches a V-cycle: "
+          + ", ".join(f"{r} {launches['ns'][r] / v:g}" for r in
+                      ("sweep8", "sweep7", "bound2", "ppe2", "spmv8", "spmv6")), flush=True)
+    if not launches["ns"]["bound2"] <= BOUND2_PER_VCYCLE * v:
+        return fail(f"ns: {launches['ns']['bound2']} bound2 launches in {v} V-cycles: "
+                    "the smoother's re-solves are not all fused")
     hist = rec.residual_history  # every step while steps < 1000
     if len(hist) != NS_STEPS or not all(math.isfinite(h) for h in hist):
         return fail(f"ns: fs_residual history not finite or short: {hist}")
@@ -740,6 +895,20 @@ def main(argv=None) -> int:
     bench_op = bench.build_operator()
     print(f"bench operator (host, shared by the bench, kexp and ksweepprobe): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n1m = bench_op["ell"].nrows_pad
+    patches = gk.block_patch_tables(gk.global_cols(bench_op["ell"]).numpy(),
+                                    n1m // gk.LANES, dev)
+    for dt, kdt in ((torch.float32, torch.float32), (torch.float64, torch.float64),
+                    (torch.float32, torch.bfloat16)):
+        sw = gk.BlockSweep(
+            A=gk.device_ell(bench_op["ell"], dt, dev, "spmv6"),
+            kT=torch.from_numpy(bench_op["kT"]).to(dev, kdt),
+            lagc=torch.zeros(n1m, dtype=dt, device=dev),
+            order=torch.as_tensor(bench_op["order"], dtype=torch.int32).to(dev),
+            phase_ptr=bench_op["phase_ptr"], serial=False, role="sweep8", patches=patches)
+        check_smooth(f"bench {n1m} rows, {sw.nphases} colors", sw)
+        del sw
+        torch.cuda.empty_cache()
     print("main path (bench): python -m meshlessmultigridpoisson_torch.bench", flush=True)
     gk.reset_counts()
     res = bench.run(op=bench_op)
@@ -882,7 +1051,9 @@ def main(argv=None) -> int:
                                 ms=c["ms"], plain_ms=c["plain_ms"],
                                 bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                                 library_ms=c["library_ms"],
-                                **{k: c[k] for k in ("device_ms", "library_device_ms")
+                                **{k: c[k] for k in ("device_ms", "library_device_ms",
+                                                     "loop_ms", "ab_ms", "staging",
+                                                     "x_lag_err")
                                    if c.get(k) is not None}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)

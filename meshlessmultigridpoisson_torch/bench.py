@@ -25,12 +25,16 @@ the card's published memory rate, or operations over its arithmetic rate,
 from the card's name).  Before it is timed, the stream probe is held
 against its plain version at the timed depth, and each timed sweep
 (storage order, colored, bf16 K) against ``block_oneshot_sweep_plain`` on
-the same inputs (``SWEEP_TOL``).  Without a card it exits non-zero.
+the same inputs (``SWEEP_TOL``).  The colored sweep (``sweep8``) is one
+launch of the fused smoother (``block_smooth``, one sweep); beside it the
+parent design, one launch per color (``sweep8_percolor``), timed only.
+Without a card it exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -134,9 +138,12 @@ def run(seed: int = 0, op: dict | None = None) -> dict:
     storage = torch.arange(nb, dtype=torch.int32, device=dev)
     colored = torch.from_numpy(op["order"].astype(np.int32)).to(dev)
 
+    patches = gk.block_patch_tables(gk.global_cols(ell).numpy(), nb, dev)
+
     def sweep(kt, order, ptr, serial, role):
         return gk.BlockSweep(A=A, kT=kt, lagc=lagc, order=order, phase_ptr=ptr,
-                             serial=serial, role=role)
+                             serial=serial, role=role,
+                             patches=patches if role == "sweep8" else None)
 
     rows = {}
 
@@ -182,7 +189,8 @@ def run(seed: int = 0, op: dict | None = None) -> dict:
     xs = x.clone()
     sw6 = sweep(kT32, storage, (0, nb), True, "sweep6")
     sw8 = sweep(kT32, colored, op["phase_ptr"], False, "sweep8")
-    for key, sw, kk in (("sweep6", sw6, 2), ("sweep8", sw8, 16)):
+    sw8p = dataclasses.replace(sw8, role="sweep8_percolor")  # the parent design
+    for key, sw, kk in (("sweep6", sw6, 2), ("sweep8", sw8, 16), ("sweep8_percolor", sw8p, 16)):
         check_sweep(key, sw)
         t = pf.chain_time(lambda xx: gk.block_oneshot_sweep(sw, xx, zl, b), xs, k=kk,
                           reps=3)
@@ -241,7 +249,9 @@ def run(seed: int = 0, op: dict | None = None) -> dict:
                         "whole operator (yardstick, not used by the port)"),
             "kernels": ("one storage-order kernel serves v7 and v6 (role sweep6, "
                         f"{op['union_slots']} union slots here), so the v7 and v6 "
-                        "timings are the same; colored sweep role sweep8"),
+                        "timings are the same; colored sweep role sweep8 (the fused "
+                        "smoother, one launch a sweep here), sweep8_percolor the "
+                        "parent design (one launch a color)"),
             "host_setup_s": setup_s,
             "n": N, "k": K, "band": BAND, "seed": seed, "nnz": nnz,
         },

@@ -9,21 +9,21 @@
 // smoother does not update have zero K rows), stored TRANSPOSED as
 // kT[blk][c][r] = K_blk[r][c] — the reference's `kinvT` orientation.
 //
-// Replaces three TPU kernels of the reference package:
-//   meshlessmultigridpoisson_tpu/ops/kernels8.py:sor_sweep_tpu8  (fine
-//     levels: colored block order; same-color blocks are independent, so a
-//     phase = one color, one CTA per block, launched once per color)
-//   meshlessmultigridpoisson_tpu/ops/kernels6.py:sor_sweep_tpu7  (storage
-//     block order, each block sees the previous result; a phase = all
-//     blocks, walked in order by a single CTA)
+// Replaces the reference package's
 //   meshlessmultigridpoisson_tpu/ops/kernels6.py:515 sor_sweep_tpu6  (the
-//     same storage-order chain; on the TPU it reloads each block's x
-//     patches instead of keeping an 8-block union in a <= 32-slot scratch,
-//     a VMEM constraint, not math — here both are the single-CTA walk)
-// The same code serves all three: CTA i handles blocks i, i + gridDim.x, ...
-// of the phase list, with a block barrier between consecutive blocks, so a
-// grid of one CTA is the exact storage-order chain and a grid of one CTA
-// per block is the parallel color phase.
+//     storage-order chain; on the TPU it reloads each block's x patches
+//     instead of keeping an 8-block union in a <= 32-slot scratch, a VMEM
+//     constraint, not math — here the single-CTA walk), and
+//     ops/kernels4.py:620 sor_sweep_tpu5 (the same chain, probes.ktime).
+// The solve's colored sweep (kernels8.py sor_sweep_tpu8) and coarsest
+// storage-order sweep (kernels6.py sor_sweep_tpu7) run in block_smooth.cu,
+// one launch per smoother call.  This file keeps the parent design of the
+// colored sweep, one launch per color, as the timing-only role
+// "sweep8_percolor" (the bench and chip_smoke.py time it beside the fused
+// kernel).  CTA i handles blocks i, i + gridDim.x, ... of the phase list,
+// with a block barrier between consecutive blocks, so a grid of one CTA is
+// the exact storage-order chain and a grid of one CTA per block is one
+// color's parallel phase.
 //
 // K in bf16 (`solve --fast-k`): the instance with KT = __nv_bfloat16 takes
 // f32 vals/x/b/lag_col and computes what the TPU's fast mode computes
@@ -42,8 +42,9 @@
 // to keep every thread busy, and t lives in shared memory.  512 threads per
 // CTA (16 warps, 8 rows each for the gather) measured 1.7x faster per fine
 // sweep than 256 and ahead of 1024 end to end on the slice (H100, PERF.md).
-// TMA/wgmma staging of K, fusing colors into a persistent kernel and
-// shortening the storage-order chain are later work.
+// block_smooth.cu stages K by TMA and fuses a smoother call's colors and
+// sweeps into one launch; shortening the long storage-order chain is later
+// work.
 //
 // Timing-only variants (the reference's scripts/ksweepprobe.py:110
 // make_sweep_variant; probes/ksweepprobe.py): the kernel is templated on a
@@ -67,37 +68,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "block_sweep_common.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kBlk = 128;      // rows per block (the reference's lane width)
-constexpr int kThreads = 512;  // 16 warps: 8 rows each for the gather
-constexpr int kSplit = kThreads / kBlk;  // partial sums per output row
+using mmp_sweep::k_val;
+using mmp_sweep::kBlk;
+using mmp_sweep::kSplit;
+using mmp_sweep::kThreads;
+using mmp_sweep::kWarp;
+using mmp_sweep::t_in;
+using mmp_sweep::warp_sum;
+
 constexpr int kGroup = 8;  // blocks per hoisted group (the reference's MB)
 
 enum SweepMode : int { kBase = 0, kHoist = 1, kNoDot = 2, kNoGather = 3 };
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-// K element and product input in the accumulation type T: identity when K
-// is stored in T; bf16 K widens exactly and rounds t to bf16 first
-template <typename T>
-__device__ __forceinline__ T k_val(T k) { return k; }
-__device__ __forceinline__ float k_val(__nv_bfloat16 k) {
-  return __bfloat162float(k);
-}
-template <typename T, typename KT>
-__device__ __forceinline__ T t_in(T t) { return t; }
-template <>
-__device__ __forceinline__ float t_in<float, __nv_bfloat16>(float t) {
-  return __bfloat162float(__float2bfloat16(t));
-}
 
 // (A x)_row by one warp, valid in lane 0; kNoGather skips it (0)
 template <int Mode, typename T>

@@ -10,17 +10,20 @@ the kernels' layouts on ``device``:
 * the one-shot block GS tables for ``block_oneshot_sweep``: per-block
   K = (D/omega + L)^-1 with omega * omega_scale and the smooth mask folded
   in (f32, f64, or bf16 under ``k_dtype``), and the block execution order.
-  ``sweep_order="colored"``: colored (one phase per color, "v8-colored")
-  on levels the reference's ``prepare_colored_sweep`` takes
+  ``sweep_order="colored"``: colored (one phase per color, "v8-colored",
+  role ``sweep8``) on levels the reference's ``prepare_colored_sweep`` takes
   (``ops.gpu_kernels.colored_refusal``: at least 32 blocks of 128 rows,
   duplicate padding within 2x, program scratch within 96 or 256 slots),
   storage order otherwise.
   ``sweep_order="exact"``: storage order on every level, the matvec on the
   ``spmv6`` role throughout (the reference keeps ``kell6`` there).  A
-  storage-order level is "v6-oneshot" (role ``sweep6``) where the
-  reference's union-scratch tables would need more than 32 slots
-  (``ops.gpu_kernels.union_slots``), "v7-exact" (``sweep7``) otherwise;
-  both launch the same single-CTA chain;
+  storage-order level is "v6-oneshot" where the reference's union-scratch
+  tables would need more than 32 slots (``ops.gpu_kernels.union_slots``),
+  "v7-exact" otherwise.  Roles: ``sweep7`` (the fused one-CTA
+  ``coarse_smooth``) for a v7-exact level whose vectors fit its shared
+  memory (``ops.gpu_kernels.coarse_smooth_fits``), else ``sweep6`` (the
+  single-CTA chain of ``block_oneshot_sweep``, the same function), which
+  every v6-oneshot level runs;
 * or, on a "v2-fallback" level (``use_v6=False``, or a level the
   reference's v6 layout refuses: ``ops.gpu_kernels.v6_supported``), the
   K-free class SOR tables for ``class_sor_sweep`` (``ClassSweep``: diag,
@@ -34,10 +37,13 @@ Semantics match the reference backend: same (block, class) Gauss-Seidel,
 then the Lagrange-row relax, then the exact Neumann boundary-row re-solve,
 after every sweep; the same bordered matvec and RHS pushdown — in the
 kernels' precision (f32 by default; tight tolerances come from the f64
-outer loop of mg/mixed.py).  On CPU tensors the kernels' plain PyTorch
+outer loop of mg/mixed.py).  A smoother call on a ``sweep8``/``sweep7``
+level is one launch of ``ops.gpu_kernels.block_smooth``; other levels run
+``ops.gpu_kernels.smooth_loop``, which with the plain kernels is also the
+fused launch's plain version.  On CPU tensors the kernels' plain PyTorch
 versions run instead, so ``--device cpu`` exercises the identical flow.
 The Lagrange unknown stays a 0-dim tensor on the device throughout: the
-sweep loop adds no host sync.
+smoother adds no host sync.
 """
 
 from __future__ import annotations
@@ -51,17 +57,19 @@ import torch
 from meshlessmultigridpoisson_torch.mg.vcycle import Hierarchy
 from meshlessmultigridpoisson_torch.ops.ell import global_cols
 from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
+    FUSED_SWEEP_ROLES,
     LANES,
+    UNION_MAX_SLOTS,
     BlockSweep,
     ClassSweep,
     DeviceCompact,
     DeviceEll,
-    block_oneshot_sweep,
-    UNION_MAX_SLOTS,
+    block_patch_tables,
     block_patches,
+    block_smooth,
     build_oneshot_K,
-    class_sor_sweep,
     class_sweep,
+    coarse_smooth_fits,
     color_blocks,
     colored_order,
     colored_refusal,
@@ -69,6 +77,7 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     device_compact,
     device_ell,
     ell_spmv,
+    smooth_loop,
     union_slots,
     v6_supported,
 )
@@ -100,21 +109,14 @@ class GpuLevel:
     implicit: bool
     omega: float
     iters: int
+    # which sweep family this level runs (recorded in SolveRecords): the
+    # reference's kind ("v8-colored", "v7-exact", "v6-oneshot",
+    # "v2-fallback"), or "matvec-only"
+    kernel_kind: str
 
     @property
     def n_pad(self) -> int:
         return self.A.nrows_pad
-
-    @property
-    def kernel_kind(self) -> str:
-        """Which sweep family this level runs (recorded in SolveRecords)."""
-        if self.sweep is None:
-            return "matvec-only"
-        if isinstance(self.sweep, ClassSweep):
-            return "v2-fallback"
-        if not self.sweep.serial:
-            return "v8-colored"
-        return "v6-oneshot" if self.sweep.role == "sweep6" else "v7-exact"
 
     def to_padded(self, v_logical: torch.Tensor) -> torch.Tensor:
         out = v_logical.new_zeros(self.n_pad)
@@ -195,7 +197,8 @@ def gpu_level_from_operator(
     v2 = runs_v2(op, use_v6)
     colored = False
     if not v2:
-        pids = block_patches(global_cols(op.A).numpy(), nb)
+        gcols = global_cols(op.A).numpy()
+        pids = block_patches(gcols, nb)
         if sweep_order == "colored":
             colors = color_blocks(pids, nb)
             colored = colored_refusal(pids, nb, colors) is None
@@ -205,20 +208,24 @@ def gpu_level_from_operator(
     def f(v):
         return v.to(device=device, dtype=dtype)
 
-    sw = None
+    sw, kind = None, "matvec-only"
     if sweep and v2:
         sw = class_sweep(A, op.A.diag, op.smooth_mask, op.omega * op.omega_scale,
                          op.lag_col, class_size=op.class_size, role="sweep2")
+        kind = "v2-fallback"
     elif sweep:
         kT = build_oneshot_K(
             op.A, op.omega * op.omega_scale.numpy(), op.smooth_mask.numpy(),
             class_size=op.class_size)
         if colored:
             order, ptr = colored_order(colors)
-            role = "sweep8"
+            kind, role = "v8-colored", "sweep8"
         else:
             order, ptr = np.arange(nb), (0, nb)
-            role = "sweep6" if union_slots(pids, nb) > UNION_MAX_SLOTS else "sweep7"
+            kind = "v6-oneshot" if union_slots(pids, nb) > UNION_MAX_SLOTS else "v7-exact"
+            m = op.bound.ell.nrows_pad if op.bound.nrows else 0
+            role = ("sweep7" if kind == "v7-exact"
+                    and coarse_smooth_fits(op.n_pad, dtype, k_dtype, m) else "sweep6")
         sw = BlockSweep(
             A=A,
             kT=torch.from_numpy(kT).to(device=device, dtype=k_dtype),
@@ -227,6 +234,7 @@ def gpu_level_from_operator(
             phase_ptr=ptr,
             serial=not colored,
             role=role,
+            patches=block_patch_tables(gcols, nb, device) if colored else None,
         )
     return GpuLevel(
         A=A,
@@ -245,6 +253,7 @@ def gpu_level_from_operator(
         implicit=op.implicit,
         omega=op.omega,
         iters=op.iters,
+        kernel_kind=kind,
     )
 
 
@@ -299,20 +308,16 @@ def push_inhomog_to_rhs(op: GpuLevel, b):
 def smooth(op: GpuLevel, x, x_lag, b, b_lag, iters=None):
     """``iters`` sweeps, each: block GS (class SOR on a v2-fallback level)
     -> Lagrange-row relax -> Neumann row re-solve (reference
-    tpu_backend.smooth).  The sweep and re-solve kernels update in place,
-    so ``x`` is copied once up front."""
+    tpu_backend.smooth); returns new (x, x_lag).  A ``sweep8``/``sweep7``
+    level runs the whole call in one launch (``block_smooth``); other
+    levels the loop of sweep, relax and re-solve launches
+    (``smooth_loop``)."""
     iters = op.iters if iters is None else iters
-    sweep = class_sor_sweep if isinstance(op.sweep, ClassSweep) else block_oneshot_sweep
-    w = op.omega
-    x = x.clone()
     x_lag = torch.as_tensor(x_lag, dtype=x.dtype, device=x.device)
     b_lag = torch.as_tensor(b_lag, dtype=x.dtype, device=x.device)
     b = b.contiguous()
-    for _ in range(iters):
-        sweep(op.sweep, x, x_lag, b)
-        if op.has_lagrange:
-            # border row: A_NN = 1 (grid.cpp:573)
-            x_lag = (1.0 - w) * x_lag + w * (b_lag - _lag_dot(op, x))
-        if op.bound.nrows:
-            compact_rows(op.bound, x, b)
-    return x, x_lag
+    lag_row = op.lag_row if op.has_lagrange else None
+    bound = op.bound if op.bound.nrows else None
+    if isinstance(op.sweep, BlockSweep) and op.sweep.role in FUSED_SWEEP_ROLES:
+        return block_smooth(op.sweep, x, x_lag, b, b_lag, iters, op.omega, lag_row, bound)
+    return smooth_loop(op.sweep, x, x_lag, b, b_lag, iters, op.omega, lag_row, bound)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Six kernels (five sources in ``meshlessmultigridpoisson_torch/csrc/``)
+Eight kernels (six sources in ``meshlessmultigridpoisson_torch/csrc/``)
 replace fourteen Pallas TPU kernels of the reference package and eight of
 its timing probes:
 
@@ -15,10 +15,18 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``block_oneshot_sweep`` (sweep6)   ops/kernels6.py:515 ``sor_sweep_tpu6``:
                                    storage-order block GS on levels whose
                                    8-block union exceeds 32 x patches
-``block_oneshot_sweep`` (sweep7)   ops/kernels6.py ``sor_sweep_tpu7``:
-                                   storage-order block GS (coarsest level)
-``block_oneshot_sweep`` (sweep8)   ops/kernels8.py ``sor_sweep_tpu8``:
-                                   colored block GS (fine levels)
+``coarse_smooth`` (sweep7)         ops/kernels6.py:812 ``sor_sweep_tpu7``:
+                                   storage-order block GS (coarsest level);
+                                   a smoother call in one CTA, the level in
+                                   shared memory (``block_smooth``)
+``colored_smooth`` (sweep8)        ops/kernels8.py:428 ``sor_sweep_tpu8``:
+                                   colored block GS (fine levels); a
+                                   smoother call in one cooperative launch
+                                   (``block_smooth``)
+``block_oneshot_sweep``            ops/kernels8.py:428 ``sor_sweep_tpu8`` as
+(``sweep8_percolor``)              the parent design ran it, one launch per
+                                   color (timing only: the bench and
+                                   ``chip_smoke.py``)
 ``compact_rows`` (``bound2``)      ops/kernels.py ``spmv_tpu2``: Neumann
                                    boundary-row re-solve after every sweep
 ``compact_rows`` (``push2``)       ops/kernels.py ``spmv_tpu2``: condensation
@@ -80,7 +88,11 @@ passes (``kiso8_mxu``,             sums by the MXU at HIGHEST / DEFAULT,
 =================================  ===========================================
 
 The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
-all three sweep roles.
+all its roles.  A smoother call (``mg.gpu_backend.smooth``: ``iters``
+sweeps, each followed by the Lagrange relax and the Neumann re-solve) on a
+``sweep8`` or ``sweep7`` level is one launch of ``block_smooth``; its plain
+version is ``smooth_loop`` over the plain kernels, the loop of separate
+launches that still runs ``sweep6`` and the class sweeps.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a``, one process per
 source started together, linked into a shared library with a plain C
@@ -107,6 +119,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import shutil
 import subprocess
@@ -124,12 +137,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmmp_kernels.so")
 SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu", "compact_rows.cu",
-           "stream_ceiling.cu", "class_sor_sweep.cu")
+           "stream_ceiling.cu", "class_sor_sweep.cu", "block_smooth.cu")
+HEADERS = ("block_sweep_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
+          "sweep8_percolor": 0,
           "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0, "sweep2": 0,
           "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0, "spmv1": 0,
           "spmv3": 0, "sweep1": 0, "probe_base": 0, "probe_hoist": 0,
@@ -143,7 +158,8 @@ COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
 SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4", "spmv1", "spmv3")
 
 # launches of the solve's kernels by "role rows x cols" (the rows a launch
-# writes, the length of the vector it reads): None, or, during a measurement
+# writes, the length of the vector it reads; a fused smoother launch adds
+# "x sweeps", its iterations): None, or, during a measurement
 # run (``apps.cli``'s ``--profile``), a dict; each launch then also runs
 # inside a ``torch.profiler`` range of that name (``_call``)
 SHAPES: dict | None = None
@@ -175,7 +191,8 @@ def build(verbose: bool = False) -> str:
     """
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     fresh = os.path.exists(LIB_PATH) and all(
-        os.path.getmtime(LIB_PATH) >= os.path.getmtime(s) for s in srcs)
+        os.path.getmtime(LIB_PATH) >= os.path.getmtime(s)
+        for s in srcs + [os.path.join(CSRC, h) for h in HEADERS])
     if fresh and not verbose:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -240,6 +257,14 @@ def _load():
             lib.mmp_spmv_probe_f32.argtypes = [p, p, i, i, p, p, i, p]
             lib.mmp_kiso_spmv_f32.restype = i
             lib.mmp_kiso_spmv_f32.argtypes = [p, p, p, p, i, i, p, p, i, p]
+            for name in ("mmp_block_smooth_f32", "mmp_block_smooth_f64",
+                         "mmp_block_smooth_f32_bf16k"):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [i, p, p, p, p, p, i, i, i, p, p, p, p, p, i, i, i,
+                               ctypes.c_double,
+                               p, p, p, p, p, p, p, p, i, i, p, p, p, p,
+                               ctypes.POINTER(i)]
             lib.mmp_sweep_probe_f32.restype = i
             lib.mmp_sweep_probe_f32.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
             for name in ("mmp_class_sweep_f32", "mmp_class_sweep_f64"):
@@ -264,12 +289,13 @@ def _check(name: str, t: torch.Tensor, device, dtype=None, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _call(role: str, rows: int, cols: int, fn, *args) -> int:
+def _call(role: str, rows: int, cols: int, fn, *args, sweeps: int | None = None) -> int:
     """``fn(*args)``, a kernel's C entry; while ``SHAPES`` is a dict, inside
-    a profiler range "role rows x cols", counted there."""
+    a profiler range "role rows x cols" ("role rows x cols x sweeps" for a
+    fused smoother launch), counted there."""
     if SHAPES is None:
         return fn(*args)
-    key = f"{role} {rows}x{cols}"
+    key = f"{role} {rows}x{cols}" + ("" if sweeps is None else f"x{sweeps}")
     SHAPES[key] = SHAPES.get(key, 0) + 1
     with torch.profiler.record_function(key):
         return fn(*args)
@@ -609,6 +635,20 @@ def kiso_spmv(A: KisoEll, x: torch.Tensor, out: torch.Tensor | None = None):
 
 
 @dataclasses.dataclass(frozen=True)
+class BlockPatches:
+    """The x patches of a colored sweep's blocks (``colored_smooth`` copies
+    them into shared memory before a block's gather): block b reads x rows
+    ``pids[b, s] * 128 + l`` for its ``npid[b]`` slots s (patch ids in
+    ascending order; padding slots repeat the first), and ``lcols[row, k] =
+    s * 128 + l`` is each ELL entry's place among them (int16: at most 256
+    patches a block, the v6 layout's bound)."""
+
+    pids: torch.Tensor  # [nb, npmax] int32
+    npid: torch.Tensor  # [nb] int32
+    lcols: torch.Tensor  # [n_pad, width] int16
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSweep:
     """Tables of one level's block Gauss-Seidel sweep.
 
@@ -625,9 +665,12 @@ class BlockSweep:
     order: torch.Tensor  # [nb] int32 block ids in execution order
     phase_ptr: tuple
     serial: bool
-    # "sweep5"/"sweep6"/"sweep7" (storage order), "sweep8" (colored), or a
+    # "sweep5"/"sweep6"/"sweep7" (storage order), "sweep8" (colored),
+    # "sweep8_percolor" (colored, the parent design: timing only), or a
     # PROBE_MODES role (``sweep_probe`` only)
     role: str
+    # role "sweep8": its blocks' x patches (``block_patch_tables``)
+    patches: BlockPatches | None = None
 
     @property
     def nphases(self) -> int:
@@ -675,25 +718,21 @@ def block_oneshot_sweep_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
 
 
 def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
-    """One full sweep (every phase) on ``x``, in place; returns ``x``."""
+    """One full sweep (every phase) on ``x``, in place; returns ``x``.
+
+    Roles "sweep8" and "sweep7" launch the fused smoother (``block_smooth``)
+    once with one sweep and no relax or re-solve; "sweep5", "sweep6" (the
+    single-CTA chain) and "sweep8_percolor" (one launch per color, the
+    parent design of "sweep8") launch ``block_oneshot_sweep.cu`` once per
+    phase."""
     if sw.role in PROBE_MODES:
         raise ValueError(f"role {sw.role!r} is a timing probe: sweep_probe runs it")
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         return block_oneshot_sweep_plain(sw, x, x_lag, b)
-    dev, dt, kdt = sw.kT.device, sw.A.vals.dtype, sw.kT.dtype
-    if dev.type != "cuda" or (dt, kdt) not in _SWEEP_SUFFIX:
-        raise ValueError(f"block_oneshot_sweep takes f32/f64 CUDA tensors with K "
-                         f"in their dtype or bf16 K with f32, got {dt} with "
-                         f"{kdt} K on {dev}")
+    if sw.role in FUSED_SWEEP_ROLES:
+        return block_smooth(sw, x, x_lag, b, iters=1, inplace=True)[0]
+    dev, dt, kdt = _check_block_sweep(sw, x, b, "block_oneshot_sweep")
     n_pad = sw.A.nrows_pad
-    nb = n_pad // LANES
-    _check("kT", sw.kT, dev, kdt, (nb, LANES, LANES))
-    _check("vals", sw.A.vals, dev, dt)
-    _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
-    _check("lagc", sw.lagc, dev, dt, (n_pad,))
-    _check("order", sw.order, dev, torch.int32, (nb,))
-    _check("x", x, dev, dt, (n_pad,))
-    _check("b", b, dev, dt, (n_pad,))
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
     _check("x_lag", xl, dev, dt, ())
     fn = getattr(_load(), f"mmp_block_sweep_{_SWEEP_SUFFIX[(dt, kdt)]}")
@@ -707,6 +746,218 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
         _launch_ok(rc, "block_oneshot_sweep")
         COUNTS[sw.role] += 1
     return x
+
+
+def _check_block_sweep(sw: BlockSweep, x, b, what: str):
+    """(device, vector dtype, K dtype) of a sweep on CUDA tensors; raises on
+    a device, dtype, shape or layout the kernels do not take."""
+    dev, dt, kdt = sw.kT.device, sw.A.vals.dtype, sw.kT.dtype
+    if dev.type != "cuda" or (dt, kdt) not in _SWEEP_SUFFIX:
+        raise ValueError(f"{what} takes f32/f64 CUDA tensors with K in their dtype "
+                         f"or bf16 K with f32, got {dt} with {kdt} K on {dev}")
+    n_pad = sw.A.nrows_pad
+    nb = n_pad // LANES
+    _check("kT", sw.kT, dev, kdt, (nb, LANES, LANES))
+    _check("vals", sw.A.vals, dev, dt)
+    _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
+    _check("lagc", sw.lagc, dev, dt, (n_pad,))
+    _check("order", sw.order, dev, torch.int32, (nb,))
+    _check("x", x, dev, dt, (n_pad,))
+    _check("b", b, dev, dt, (n_pad,))
+    return dev, dt, kdt
+
+
+# ---------------------------------------------------------------------------
+# block_smooth: a smoother call in one launch (csrc/block_smooth.cu)
+# ---------------------------------------------------------------------------
+
+# role -> kernel of block_smooth.cu: 0 colored_smooth (one cooperative
+# launch, a grid barrier between colors), 1 coarse_smooth (one CTA, the
+# level in shared memory)
+FUSED_SWEEP_ROLES = {"sweep8": 0, "sweep7": 1}
+SMEM_OPTIN = 232_448  # shared memory a CTA may opt in to on an H100 (227 KB)
+# role -> (grid, K buffers, ELL buffers, shared bytes) of its last launch
+SMOOTH_INFO: dict[str, tuple] = {}
+_ES = {torch.float32: 4, torch.float64: 8, torch.bfloat16: 2}
+
+
+def _al128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+def smooth_smem_bytes(nk: int, ne: int, width: int, dtype, k_dtype, n_vec: int = 0,
+                      m: int = 0, cbytes: int = 4, npx: int = 0) -> int:
+    """Shared bytes of a ``block_smooth`` launch with ``nk`` K buffers and
+    ``ne`` ELL buffers of columns of ``cbytes`` each (block_smooth.cu's
+    ``make_layout``): the mbarriers, the buffers, ``colored_smooth``'s
+    ``npx`` patch values (its columns are int16, ``cbytes`` 2), t, the
+    product's partial sums, the reduction scratch and, for
+    ``coarse_smooth``, four level vectors of ``n_vec`` rows and ``m``
+    boundary rows' diagonals and targets."""
+    es, ks = _ES[dtype], _ES[k_dtype]
+    return (128 + nk * LANES * LANES * ks + ne * _al128(LANES * width * (es + cbytes))
+            + _al128(npx * es) + _al128(LANES * es) + _al128(512 * es) + _al128(17 * es)
+            + _al128(4 * n_vec * es) + _al128(m * es) + _al128(4 * m))
+
+
+def coarse_smooth_fits(n_pad: int, dtype, k_dtype, bound_rows: int) -> bool:
+    """Whether ``coarse_smooth`` takes a storage-order level: one K tile, its
+    four vectors (x, b, Lagrange column and row) and its ``bound_rows``
+    boundary rows' diagonals and targets within ``SMEM_OPTIN`` (f32: up to
+    ~10,200 rows, f64 ~2,990).  The repack gives a level over it role
+    "sweep6"."""
+    return smooth_smem_bytes(1, 0, 0, dtype, k_dtype, n_pad, bound_rows) <= SMEM_OPTIN
+
+
+def block_patch_tables(gcols: np.ndarray, nb: int, device) -> BlockPatches:
+    """``BlockPatches`` of global int32 columns ``gcols`` [nb * 128, width]
+    (padding entries included), on ``device``; raises past 256 patches a
+    block."""
+    gc = np.asarray(gcols, dtype=np.int64).reshape(nb, -1)
+    lists = [np.unique(r >> 7) for r in gc]
+    npmax = max(u.size for u in lists)
+    if npmax > V6_MAX_PATCHES:
+        raise ValueError(f"a block reads {npmax} x patches, more than {V6_MAX_PATCHES}")
+    pids = np.empty((nb, npmax), dtype=np.int32)
+    lcols = np.empty(gc.shape, dtype=np.int16)
+    for b, u in enumerate(lists):
+        pids[b, : u.size] = u
+        pids[b, u.size:] = u[0]
+        lcols[b] = (np.searchsorted(u, gc[b] >> 7) << 7) | (gc[b] & 127)
+    npid = np.array([u.size for u in lists], dtype=np.int32)
+    return BlockPatches(pids=torch.from_numpy(pids).to(device),
+                        npid=torch.from_numpy(npid).to(device),
+                        lcols=torch.from_numpy(lcols.reshape(np.shape(gcols))).to(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _phase_ptr(ptr: tuple, device: torch.device) -> torch.Tensor:
+    """A BlockSweep's phase offsets as an int32 tensor on ``device``, made
+    once per (offsets, device)."""
+    return torch.tensor(ptr, dtype=torch.int32, device=device)
+
+
+def smooth_loop(sw, x, x_lag, b, b_lag, iters: int, omega: float = 1.0, lag_row=None,
+                bound: DeviceCompact | None = None, plain: bool = False):
+    """``iters`` times: one sweep (``block_oneshot_sweep``, or
+    ``class_sor_sweep`` for a ClassSweep), then, given ``lag_row``, the
+    Lagrange relax x_lag = (1 - omega) x_lag + omega (b_lag - lag_row . x),
+    then, given a non-empty "bound2" table, the boundary re-solve
+    (``compact_rows``): the reference's ``tpu_backend.smooth`` scan as a
+    loop of launches, on a copy of ``x``.  Returns (x, x_lag).  ``plain``
+    runs the kernels' plain versions: the plain version of ``block_smooth``."""
+    if isinstance(sw, ClassSweep):
+        sweep = class_sor_sweep_plain if plain else class_sor_sweep
+    else:
+        sweep = block_oneshot_sweep_plain if plain else block_oneshot_sweep
+    resolve = compact_rows_plain if plain else compact_rows
+    x = x.clone()
+    for _ in range(iters):
+        sweep(sw, x, x_lag, b)
+        if lag_row is not None:
+            # border row: A_NN = 1 (grid.cpp:573); an elementwise product
+            # and a sum, no cuBLAS
+            x_lag = (1.0 - omega) * x_lag + omega * (b_lag - (lag_row * x).sum())
+        if bound is not None and bound.nrows:
+            resolve(bound, x, b)
+    return x, x_lag
+
+
+def block_smooth_plain(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
+                       omega: float = 1.0, lag_row=None, bound=None):
+    """Plain version of ``block_smooth``: ``smooth_loop`` over the plain
+    sweep, relax and re-solve; returns new (x, x_lag)."""
+    return smooth_loop(sw, x, x_lag, b, b_lag, iters, omega, lag_row, bound, plain=True)
+
+
+def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
+                 omega: float = 1.0, lag_row=None, bound: DeviceCompact | None = None,
+                 inplace: bool = False):
+    """``iters`` x (sweep, Lagrange relax given ``lag_row``, boundary
+    re-solve given a non-empty "bound2" table) in ONE launch of the fused
+    kernel of ``sw.role`` ("sweep8": colored_smooth, "sweep7":
+    coarse_smooth); counted once.  Returns new (x, x_lag); ``inplace``
+    (the one-sweep call of ``block_oneshot_sweep``, no relax) updates ``x``
+    and returns (x, None).  CPU tensors: ``block_smooth_plain``."""
+    if sw.role not in FUSED_SWEEP_ROLES:
+        raise ValueError(f"block_smooth takes roles {sorted(FUSED_SWEEP_ROLES)}, "
+                         f"not {sw.role!r}")
+    if bound is not None and bound.role != "bound2":
+        raise ValueError(f"block_smooth re-solves a bound2 table, not {bound.role!r}")
+    if bound is not None and not bound.nrows:
+        bound = None
+    if iters < 1 or (inplace and (lag_row is not None or bound is not None or iters != 1)):
+        raise ValueError("block_smooth: iters >= 1; in place only one bare sweep")
+    if x.device.type == "cpu" and sw.kT.device.type == "cpu":
+        if inplace:
+            return block_oneshot_sweep_plain(sw, x, x_lag, b), None
+        return block_smooth_plain(sw, x, x_lag, b, b_lag, iters, omega, lag_row, bound)
+    dev, dt, kdt = _check_block_sweep(sw, x, b, "block_smooth")
+    n_pad, nb = sw.A.nrows_pad, sw.A.nrows_pad // LANES
+    for name, t in (("kT", sw.kT), ("vals", sw.A.vals), ("cols", sw.A.cols)):
+        if t.data_ptr() % 16:  # cp.async.bulk copies 16-byte-aligned tiles
+            raise ValueError(f"block_smooth: {name} is not 16-byte aligned")
+    coarse = FUSED_SWEEP_ROLES[sw.role]
+    m = bound.m_pad if bound is not None else 0
+    if coarse and not coarse_smooth_fits(n_pad, dt, kdt, m):
+        raise ValueError(f"coarse_smooth: a level of {n_pad} rows ({m} boundary rows) "
+                         f"in {dt} does not fit {SMEM_OPTIN} B of shared memory")
+    pt = sw.patches
+    if not coarse:
+        if pt is None:
+            raise ValueError("colored_smooth needs the blocks' x patches "
+                             "(BlockSweep.patches: block_patch_tables)")
+        _check("lcols", pt.lcols, dev, torch.int16, sw.A.vals.shape)
+        _check("pids", pt.pids, dev, torch.int32, (nb, pt.pids.shape[1]))
+        _check("npid", pt.npid, dev, torch.int32, (nb,))
+        if pt.lcols.data_ptr() % 16:
+            raise ValueError("block_smooth: lcols is not 16-byte aligned")
+        need = smooth_smem_bytes(1, 0, sw.A.width, dt, kdt, cbytes=2,
+                                 npx=pt.pids.shape[1] * LANES)
+        if need > SMEM_OPTIN:
+            raise ValueError(f"colored_smooth: {pt.pids.shape[1]} x patches a block in "
+                             f"{dt} do not fit {SMEM_OPTIN} B of shared memory")
+    xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
+    _check("x_lag", xl, dev, dt, ())
+    if lag_row is not None:
+        _check("lag_row", lag_row, dev, dt, (n_pad,))
+        bl = torch.as_tensor(b_lag, dtype=dt, device=dev).reshape(())
+        _check("b_lag", bl, dev, dt, ())
+    if bound is not None:
+        _check("bound vals", bound.vals, dev, dt)
+        _check("bound cols", bound.cols, dev, torch.int32, bound.vals.shape)
+        _check("bound rows", bound.rows, dev, torch.int32, (m,))
+        _check("bound diag", bound.diag, dev, dt, (m,))
+        if bound.n_pad != n_pad:
+            raise ValueError(f"bound table reads {bound.n_pad} rows, the level has {n_pad}")
+    ptr = _phase_ptr(sw.phase_ptr, dev)
+    max_phase = max(b - a for a, b in zip(sw.phase_ptr, sw.phase_ptr[1:]))
+    x_out = x if inplace else torch.empty_like(x)
+    xl_out = None if inplace else torch.empty((), dtype=dt, device=dev)
+    partials = None if coarse else torch.empty(2 * nb, dtype=dt, device=dev)
+    info = (ctypes.c_int * 4)()
+
+    def ptr_of(t):
+        return None if t is None else t.data_ptr()
+
+    fn = getattr(_load(), f"mmp_block_smooth_{_SWEEP_SUFFIX[(dt, kdt)]}")
+    rc = _call(sw.role, n_pad, n_pad, fn, coarse, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
+               *((None, None, None, 0) if coarse else
+                 (pt.lcols.data_ptr(), pt.pids.data_ptr(), pt.npid.data_ptr(),
+                  pt.pids.shape[1])),
+               sw.A.width, n_pad, b.data_ptr(), sw.lagc.data_ptr(), sw.kT.data_ptr(),
+               sw.order.data_ptr(), ptr.data_ptr(), sw.nphases, max_phase, iters,
+               float(omega), ptr_of(lag_row), None if lag_row is None else bl.data_ptr(),
+               xl.data_ptr(), ptr_of(xl_out),
+               *((bound.vals.data_ptr(), bound.cols.data_ptr(), bound.rows.data_ptr(),
+                  bound.diag.data_ptr(), bound.width, m) if bound is not None
+                 else (None, None, None, None, 0, 0)),
+               x.data_ptr(), x_out.data_ptr(), ptr_of(partials),
+               torch.cuda.current_stream(dev).cuda_stream, info, sweeps=iters)
+    _launch_ok(rc, f"block_smooth {sw.role}")
+    COUNTS[sw.role] += 1
+    SMOOTH_INFO[sw.role] = tuple(info)
+    return x_out, xl_out
 
 
 # The timing-only variants of the storage-order chain (the reference's

@@ -4,17 +4,22 @@
 
 Reads SolveRecords written by ``cli solve --device cuda --profile --out``
 (``extra.profile.launch_shapes``: launches and device ms per launch of
-each "role rows x cols", from torch.profiler; ``extra.per_level``: each
-level's sweep and matvec bounds) and prints, per record, one JSON line per
+each "role rows x cols", or "role rows x cols x sweeps" for a fused
+smoother launch, from torch.profiler; ``extra.per_level``: each level's
+one-sweep smoother and matvec bounds) and prints, per record, one JSON line per
 (role, level, part): the launches of the timed solve, the device ms per
 launch, the bound per launch where the record holds it, and the excess
 ``launches x (device ms per launch - bound per launch)``; then the roles
 ranked by their summed excess.  Levels are numbered coarse (0) to fine
 by the vectors' lengths of the sweep launches.  A part is "matvec" (a
 square SpMV), "restrict" / "prolong" (an SpMV onto a coarser / finer
-level: output rows), "sweep" (a colored sweep's launches, one per color,
-summed) or "rows" (``compact_rows``).  Bounds: a sweep launch takes its
-rows' share of the level's sweep bound, a matvec the level's matvec bound;
+level: output rows), "smooth" (a fused smoother call: ``iters`` sweeps with
+their relax and re-solve in one launch), "sweep" (a sweep launched on its
+own: a colored sweep's launches, one per color, summed) or "rows"
+(``compact_rows``).  Bounds: a fused launch of ``iters`` sweeps takes
+``iters`` times the level's one-sweep smoother bound (what ``iters``
+separate sweeps must move), a sweep launch its rows' share of it, a matvec
+the level's matvec bound;
 transfers and ``compact_rows`` have none in the record (bound 0: the
 excess is then their device time).  Reads no card.
 """
@@ -32,15 +37,15 @@ def rank(rec: dict) -> tuple[list[dict], list[tuple[str, float]]]:
     parsed = []
     for s in shapes:
         role, dims = s["shape"].split()
-        r, c = (int(v) for v in dims.split("x"))
-        parsed.append((role, r, c, s))
-    n_pads = sorted({c for role, _, c, _ in parsed if role.startswith("sweep")})
+        r, c, *sweeps = (int(v) for v in dims.split("x"))
+        parsed.append((role, r, c, sweeps[0] if sweeps else None, s))
+    n_pads = sorted({c for role, _, c, _, _ in parsed if role.startswith("sweep")})
     level = {n: i for i, n in enumerate(n_pads)}
     groups: dict[tuple, list] = {}
-    for role, r, c, s in parsed:
+    for role, r, c, sweeps, s in parsed:
         if role.startswith("sweep"):
-            lv, part = level[c], "sweep"
-            bound = per_level[lv]["sweep_bound_ms"] * r / c
+            lv, part = level[c], ("sweep" if sweeps is None else "smooth")
+            bound = per_level[lv]["sweep_bound_ms"] * r / c * (sweeps or 1)
         elif role in ("bound2", "push2", "ppe2"):
             lv, part, bound = level.get(c), "rows", 0.0
         else:  # an SpMV: its output rows name the level

@@ -4,7 +4,8 @@ Port of the reference package's ``utils/profiling.py``.  Each level's
 matvec and smoother sweep are timed on the card with CUDA events
 (``chain_time``) and turned into throughputs from the level's true nonzero
 count and a byte model of what each function needs: its nonzeros and its
-vectors, no padding (``spmv_bytes``, ``sweep_bytes``, ``compact_bytes``;
+vectors, no padding (``spmv_bytes``, ``sweep_bytes``, ``smooth_bytes``,
+``compact_bytes``;
 for the timing probes, each mode's or table mix's own work:
 ``probe_bytes``, ``spmv_probe_bytes``, ``stream_bytes``, ``kiso_bytes``).  Below
 ``ENQUEUE_MS`` a chain of launches times the host's enqueue, and
@@ -140,6 +141,46 @@ def sweep_flops(sw) -> int:
     if isinstance(sw, ClassSweep):
         return 2 * _nnz(sw.A.vals) + CLASS_UPDATE_FLOPS * sw.A.nrows_pad
     return 2 * _nnz(sw.A.vals) + 2 * _nnz(sw.kT)
+
+
+RESOLVE_FLOPS = 4  # per boundary row: d * x, y - d x, b - (...), / d
+
+
+def smooth_bytes(sw, lag_row=None, bound=None) -> int:
+    """Bytes one smoother call needs, each input read once and each output
+    written once, whatever its sweeps: the sweep's (``sweep_bytes``: x and b
+    included), the Lagrange row where it relaxes (``lag_row``), and where it
+    re-solves (``bound``, a non-empty DeviceCompact) the boundary rows'
+    nonzeros (value and int32 column), targets and diagonals.
+    ``probes.launchrank`` charges a fused launch of ``iters`` sweeps
+    ``iters`` times the one-sweep call's bound instead: what ``iters``
+    separate sweeps must move."""
+    n = sweep_bytes(sw)
+    if lag_row is not None:
+        n += lag_row.nbytes
+    if bound is not None and bound.nrows:
+        es = bound.vals.element_size()
+        n += _nnz(bound.vals) * (es + 4) + bound.nrows * (4 + es)
+    return n
+
+
+def smooth_flops(sw, iters: int = 1, lag_row=None, bound=None) -> int:
+    """Operations of ``iters`` sweeps, each with its relax (a multiply and an
+    add a row, then the update) and re-solve (the rows' products and
+    ``RESOLVE_FLOPS`` a row)."""
+    per = sweep_flops(sw)
+    if lag_row is not None:
+        per += 2 * lag_row.numel() + 4
+    if bound is not None and bound.nrows:
+        per += compact_flops(bound) + RESOLVE_FLOPS * bound.nrows
+    return iters * per
+
+
+def level_smooth_args(level) -> tuple:
+    """(lag_row, bound) of a GpuLevel's smoother: None where it has no
+    border or no boundary rows."""
+    return (level.lag_row if level.has_lagrange else None,
+            level.bound if level.bound.nrows else None)
 
 
 def probe_bytes(sw) -> int:
@@ -312,9 +353,9 @@ def profile_hierarchy(hier, reps: int = 5, k: int = 16) -> list[dict[str, Any]]:
     """Time each level's smoother sweep and matvec on the card.
 
     Returns one dict per level (coarse -> fine): n, the sweep kind, nnz,
-    per-op ms (``smooth`` with one sweep and ``matvec`` of the smoother
-    protocol), Gnnz/s, modelled GB/s, and each op's kernel bound with what
-    bounds it, the card's name and power limit.
+    per-op ms (``smooth`` with one sweep, its relax and re-solve, and
+    ``matvec`` of the smoother protocol), Gnnz/s, modelled GB/s, and each
+    op's kernel bound with what bounds it, the card's name and power limit.
     """
     from meshlessmultigridpoisson_torch.ops import smoothers as sm
 
@@ -333,9 +374,12 @@ def profile_hierarchy(hier, reps: int = 5, k: int = 16) -> list[dict[str, Any]]:
         t_sw = chain_time(lambda x: sm.smooth(lv, x, zl, b, zl, iters=1)[0], x0,
                           k=k, reps=reps)
         nnz = _level_nnz(lv)
-        mv_b, sw_b = _streamed_bytes(lv, False), _streamed_bytes(lv, True)
+        # a one-sweep smoother call: the sweep with its relax and re-solve
+        mv_b = _streamed_bytes(lv, False)
+        sw_b = smooth_bytes(lv.sweep, *level_smooth_args(lv))
         mv_bound, mv_by = bound_ms(mv_b, spmv_flops(lv.A), dt, info["name"])
-        sw_bound, sw_by = bound_ms(sw_b, sweep_flops(lv.sweep), dt, info["name"])
+        sw_bound, sw_by = bound_ms(sw_b, smooth_flops(lv.sweep, 1, *level_smooth_args(lv)),
+                                   dt, info["name"])
         out.append(dict(
             level=li,
             n=int(lv.row_map.numel()),

@@ -28,6 +28,8 @@ products, summed in another order); on the fixture, whose 11 blocks pad to
 16, so that the padded blocks show what guarded and unguarded write.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -65,6 +67,13 @@ def et():
     a = sp.coo_matrix((vals.ravel(), (rows, nbr.ravel())), shape=(n, n)).tocsr()
     a.sum_duplicates()
     return tell.ell_from_csr(a, block_rows=128)
+
+
+def _with_patches(sw):
+    """``sw`` with its blocks' x patches (role sweep8 needs them on the card)."""
+    nb = sw.A.nrows_pad // 128
+    return dataclasses.replace(
+        sw, patches=gk.block_patch_tables(sw.A.cols.cpu().numpy(), nb, "cuda"))
 
 
 def _rand(n, dtype, seed):
@@ -105,12 +114,13 @@ def test_block_sweep_matches_plain(et, serial, dtype, tol):
         lagc=torch.full((n_pad,), 0.01, dtype=dtype, device="cuda"),
         order=torch.from_numpy(order.astype(np.int32)).cuda(), phase_ptr=ptr,
         serial=serial, role="sweep7" if serial else "sweep8")
+    sw = sw if serial else _with_patches(sw)
     x, b = _rand(n_pad, dtype, 1), _rand(n_pad, dtype, 2)
     xl = torch.tensor(0.3, dtype=dtype, device="cuda")
     before = gk.COUNTS[sw.role]
     out = gk.block_oneshot_sweep(sw, x.clone(), xl, b)
     torch.cuda.synchronize()
-    assert gk.COUNTS[sw.role] == before + sw.nphases
+    assert gk.COUNTS[sw.role] == before + 1  # a sweep8 / sweep7 sweep is one launch
     ref = gk.block_oneshot_sweep_plain(sw, x.clone(), xl, b)
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     moved = (out - x).abs()[: n_pad // 7]
@@ -130,12 +140,13 @@ def _sweep(et, dtype, serial, role, k_dtype=None):
     else:
         colors = gk.color_blocks(gk.block_patches(tell.global_cols(et).numpy(), nb), nb)
         order, ptr = gk.colored_order(colors)
-    return gk.BlockSweep(
+    sw = gk.BlockSweep(
         A=gk.device_ell(et, dtype, "cuda", "spmv6"),
         kT=torch.from_numpy(kT).to("cuda", k_dtype or dtype),
         lagc=torch.full((n_pad,), 0.01, dtype=dtype, device="cuda"),
         order=torch.from_numpy(order.astype(np.int32)).cuda(), phase_ptr=ptr,
         serial=serial, role=role)
+    return _with_patches(sw) if role == "sweep8" else sw
 
 
 @pytest.mark.parametrize("role", ["sweep6", "sweep7"])
@@ -166,6 +177,139 @@ def test_block_sweep_bf16k_matches_plain(et, role, serial):
     f32 = _sweep(et, torch.float32, serial, role)  # bf16 K is close to f32 K
     ref32 = gk.block_oneshot_sweep_plain(f32, x.clone(), xl, b)
     assert float((out - ref32).abs().max()) <= 5e-2 * float((ref32 - x).abs().max())
+
+
+def test_percolor_sweep_launches_a_color_each_and_matches_plain(et):
+    """``sweep8_percolor``, the parent design of the colored sweep (one
+    launch per color), kept as a timing role."""
+    sw = _sweep(et, torch.float32, False, "sweep8_percolor")
+    x, b = _rand(et.nrows_pad, torch.float32, 13), _rand(et.nrows_pad, torch.float32, 14)
+    xl = torch.tensor(0.3, dtype=torch.float32, device="cuda")
+    before = dict(gk.COUNTS)
+    out = gk.block_oneshot_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        "sweep8_percolor": sw.nphases}
+    ref = gk.block_oneshot_sweep_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+FUSED_CASES = [(torch.float32, None, 1e-4), (torch.float64, None, 1e-11),
+               (torch.float32, torch.bfloat16, 1e-2)]
+
+
+@pytest.fixture(scope="module")
+def bound_rows(et):
+    """The compact fixture's rows (every 37th row, none reading another)
+    over the fixture's padded row space, as a level's boundary table."""
+    a = tell.ell_to_csr(et).tolil()
+    a.resize((et.nrows_pad, et.nrows_pad))
+    targets = np.arange(0, et.ncols, 37)
+    for r in targets:
+        for c in targets:
+            if c != r:
+                a[r, c] = 0.0
+    table = _compact_from_rows(a.tocsr(), targets, block_rows=128)
+    check_resolve_in_place(table)
+    return table
+
+
+def _fused_level(et, table, dtype, kdt, role):
+    """The fixture's sweep of ``role`` (colored for sweep8, storage order for
+    sweep7), a random Lagrange row and ``table`` as the boundary rows."""
+    sw = _sweep(et, dtype, role == "sweep7", role, k_dtype=kdt)
+    lag_row = _rand(et.nrows_pad, dtype, 15)
+    bound = gk.device_compact(table, dtype, "cuda", "bound2")
+    return sw, lag_row, bound
+
+
+def _held(out, ref, x0, out_l, ref_l, xl0, kdt, tol):
+    """Kernel vs plain within the sweep's tolerance: of max |plain x|, or,
+    with bf16 K, of max |dx| (x_lag: of |plain x_lag|, or of its move)."""
+    bf = kdt == torch.bfloat16
+    scale = float((ref - x0).abs().max() if bf else ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol * scale
+    scale_l = abs(float(ref_l - xl0)) if bf else abs(float(ref_l))
+    assert abs(float(out_l - ref_l)) <= tol * scale_l
+
+
+@pytest.mark.parametrize("role", ["sweep8", "sweep7"])
+@pytest.mark.parametrize("iters", [1, 5])
+@pytest.mark.parametrize("dtype,kdt,tol", FUSED_CASES, ids=["f32", "f64", "bf16k"])
+def test_block_smooth_matches_plain(et, bound_rows, role, iters, dtype, kdt, tol):
+    """One fused launch of ``iters`` sweeps with the Lagrange relax (x_lag
+    0.3, b_lag -0.4) and the boundary re-solve against its plain version
+    (the loop of plain sweeps, relax and re-solve); counted once; the input
+    left alone; a rerun gives the same bits."""
+    sw, lag_row, bound = _fused_level(et, bound_rows, dtype, kdt, role)
+    x, b = _rand(et.nrows_pad, dtype, 16), _rand(et.nrows_pad, dtype, 17)
+    x0 = x.clone()
+    xl, bl = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.3, -0.4))
+    args = (b, bl, iters, 1.4, lag_row, bound)
+    before = dict(gk.COUNTS)
+    out, out_l = gk.block_smooth(sw, x, xl, *args)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        role: 1}
+    assert torch.equal(x, x0) and out_l.shape == ()
+    ref, ref_l = gk.block_smooth_plain(sw, x, xl, *args)
+    _held(out, ref, x0, out_l, ref_l, 0.3, kdt, tol)
+    again, again_l = gk.block_smooth(sw, x, xl, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out) and torch.equal(again_l, out_l)
+    grid, nk, ne, smem = gk.SMOOTH_INFO[role]
+    assert (grid == 1) == (role == "sweep7") and nk in (1, 2) and ne in (0, 1, 2)
+    coarse = dict(n_vec=et.nrows_pad, m=bound.m_pad) if role == "sweep7" else dict(
+        cbytes=2, npx=sw.patches.pids.shape[1] * 128)
+    assert smem == gk.smooth_smem_bytes(nk, ne, et.width, dtype, kdt or dtype, **coarse)
+
+
+def test_colored_smooth_walks_a_color_larger_than_its_grid():
+    """The bench pattern at 131,072 rows (1,024 blocks, ~200 a color):
+    each CTA takes several blocks of a color; f32, 3 sweeps, no border."""
+    from meshlessmultigridpoisson_torch import bench
+
+    op = bench.build_operator(n=131072, k=20)
+    A = gk.device_ell(op["ell"], torch.float32, "cuda", "spmv6")
+    n = A.nrows_pad
+    sw = _with_patches(gk.BlockSweep(
+        A=A, kT=torch.from_numpy(op["kT"]).to("cuda", torch.float32),
+        lagc=torch.zeros(n, device="cuda"),
+        order=torch.from_numpy(op["order"].astype(np.int32)).cuda(),
+        phase_ptr=op["phase_ptr"], serial=False, role="sweep8"))
+    x, b = _rand(n, torch.float32, 18), _rand(n, torch.float32, 19)
+    xl = torch.zeros((), device="cuda")
+    out, _ = gk.block_smooth(sw, x, xl, b, None, 3)
+    torch.cuda.synchronize()
+    largest = max(q - p for p, q in zip(op["phase_ptr"], op["phase_ptr"][1:]))
+    assert gk.SMOOTH_INFO["sweep8"][0] < largest
+    ref, _ = gk.block_smooth_plain(sw, x, xl, b, None, 3)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_level_smooth_is_one_launch_on_the_card():
+    """``gpu_backend.smooth`` on the Neumann slice's colored fine level and
+    coarsest level (600/2500/5000, deg 4): one ``block_smooth`` launch a
+    call, no ``bound2`` launch, the level's own relax and re-solve, and
+    the same result as its plain version."""
+    from meshlessmultigridpoisson_torch.mg import gpu_backend
+    from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
+
+    prob = make_poisson_problem("square_with_circle", [600, 2500, 5000], poly_deg=4,
+                                neumann=True, block_rows=512, ordering="kdtile")
+    for op, role in ((prob.hierarchy.levels[-1], "sweep8"), (prob.hierarchy.levels[0], "sweep7")):
+        lv = gpu_backend.gpu_level_from_operator(op, "cuda")
+        assert lv.sweep.role == role and lv.has_lagrange and lv.bound.nrows > 0
+        x, b = _rand(lv.n_pad, torch.float32, 20), _rand(lv.n_pad, torch.float32, 21)
+        xl, bl = torch.tensor(0.2, device="cuda"), torch.tensor(0.1, device="cuda")
+        before = dict(gk.COUNTS)
+        out, out_l = gpu_backend.smooth(lv, x, xl, b, bl)
+        torch.cuda.synchronize()
+        assert {k: gk.COUNTS[k] - before[k] for k in before
+                if gk.COUNTS[k] != before[k]} == {role: 1}
+        ref, ref_l = gk.block_smooth_plain(lv.sweep, x, xl, b, bl, lv.iters, lv.omega,
+                                           lv.lag_row, lv.bound)
+        _held(out, ref, x, out_l, ref_l, 0.2, None, 1e-4)
 
 
 def test_bf16k_sweep_refuses_f64_vectors(et):
