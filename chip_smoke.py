@@ -17,13 +17,24 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ordering, 512-row assembly blocks, sizes 2500/10000/35000/150000;
    Dirichlet, then Neumann) and hold every kernel against its plain PyTorch
    version on the same inputs on the card: on the Dirichlet hierarchy
-   ``ell_spmv`` (f32 and f64) on the fine and coarsest levels, one
-   restriction and one prolongation; ``block_oneshot_sweep`` (f32 and f64)
+   ``ell_spmv`` (f32 and f64) on the fine and coarsest levels, every
+   restriction and prolongation of the solve (their u16 tables) and, in
+   f64, the fine ones and the f64 outer operator (``sweep=False``), each
+   held against its plain version (each row to ``lens``) and the parent
+   design (``spmv_rowwarp``) and timed beside both and one
+   ``torch.sparse`` CSR call (device times from ``torch.profiler`` in
+   turns parent, kernel, library, kernel, parent, twice over for the
+   tables whose chain is host-bound, each side's median taken; the column
+   format and the share of the bound printed); ``block_oneshot_sweep`` (f32 and f64)
    on the fine level in colored order (``sweep8``: the fused smoother's
    ``colored_smooth``, one sweep; ``sweep8_percolor``: the parent design,
-   one launch a color) and in storage order (``sweep6``) and on the
-   coarsest level in storage order (``sweep7``: ``coarse_smooth``, one
-   sweep); the bf16-K instance of them against the bf16 plain version;
+   one launch a color) and on the coarsest level in storage order
+   (``sweep7``: ``coarse_smooth``, one sweep); the bf16-K instance of them
+   against the bf16 plain version; the storage-order chain on the fine
+   level (``sweep6``, ``storage_chain``: the exact path's L3) in f32, bf16
+   K and f64 against its plain version and the parent chain
+   (``sweep6_chain``), one sweep timed in turns parent, kernel, kernel,
+   parent;
    the fused smoother (``block_smooth``, ``csrc/block_smooth.cu``) on the
    Dirichlet fine and coarsest levels in f32, f64 and bf16 K: one call of
    the level's 5 sweeps held against its plain version (counted once, a
@@ -37,7 +48,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    level's boundary table (re-solve) and condensation table (pushdown),
    ``class_sor_sweep`` (f32, f64) on the fine level (frozen rows,
    Lagrange column, x_lag 0.3), ``ell_spmv`` (f32, f64) on the fine
-   level's matvec (with the ``torch.sparse`` yardstick), and the fused
+   level's matvec and the Neumann f64 outer operator (as the Dirichlet
+   ones), the chain on the fine level in storage order (rows of mixed
+   lengths; f32, bf16 K, f64, as on the Dirichlet level), and the fused
    smoother on the fine and
    coarsest levels (f32, f64, bf16 K; with the Lagrange relax and the
    boundary re-solve, x_lag 0.3, b_lag -0.4) as on the Dirichlet levels.
@@ -71,9 +84,20 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    the smoother's re-solves are inside its launches); relative L1
    residual < 1e-8, re-checked
    from the returned (x, x_lag) with the plain f64 SpMV, border row
-   included; L1 error < 1e-6.  After the exact and v2 paths' counts are
-   read, each runs once more with ``--profile`` and its per-level table is
-   printed, each time at or above its bound;
+   included; L1 error < 1e-6.  After the Dirichlet and Neumann paths'
+   counts are read, each timed solve runs four more times, in turns with
+   every ``ell_spmv`` call on the parent design (``spmv_rowwarp``, checked
+   by the counts: no ``spmv6`` or ``spmv8`` launch) and on the new kernel,
+   and the times are printed (each residual < 1e-8).  After the exact
+   path's counts are read, its timed solve runs again with every
+   ``sweep6`` sweep on the parent chain (``sweep6_chain``; the run fails
+   unless it launched ``sweep6_chain`` and no ``sweep6``), then on
+   ``storage_chain`` again, and the three times are printed (each
+   residual < 1e-8).  After the exact and v2
+   paths' counts are read, each runs once more with ``--profile``, its
+   per-level table (bounds of the matvec, smoother, transfers and re-solve)
+   is printed, each time at or above its bound, and
+   ``probes.launchrank``'s excess by role;
 4. the fractional-step Navier-Stokes path (``cli ns``, Kovasznay, the
    reference program's default run at its default width and depth: sizes
    170/600/2500/10000, deg 6): on its problem, ``compact_rows`` role
@@ -87,10 +111,16 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    fs_residual finite, the steps 0, 4, 8, ... matching the reference's TPU
    record ``results/ns_tpu_r5.json`` within 2e-3 relative, and the last
    step's PPE solve (before the p_relax blend) re-checked with a plain f64
-   composition of the compatible operator below 1e-9;
+   composition of the compatible operator below 1e-9; then runs of 6
+   steps from rest on the same problem, in turns with every ``ell_spmv``
+   on the parent design and on the new kernel (parent, change, change,
+   parent, twice; each run's residuals within 2e-3 of the main path's),
+   printing each run's median step time and whether the two sides
+   separate;
 5. on the bench's 1M-row operator (5 colors of ~1,640 blocks), the fused
    colored smoother in f32, f64 and bf16 K as on the slice's levels (5
-   sweeps, no border), then the kernel bench
+   sweeps, no border) and the storage-order chain (f32, 8,192 blocks)
+   against the parent chain as on the slice's levels, then the kernel bench
    (``meshlessmultigridpoisson_torch.bench``) in-process on it (counts set
    to 0 before, read after; the bench holds the stream probe at its timed
    depth and one sweep of each timed kind against their plain versions
@@ -148,8 +178,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import contextlib
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -163,9 +195,14 @@ ROLES = {
               "meshlessmultigridpoisson_tpu/ops/kernels6.py:407"),
     "spmv8": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
               "meshlessmultigridpoisson_tpu/ops/kernels8.py:376"),
-    "sweep6": ("block_oneshot_sweep",
-               "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+    "spmv_rowwarp": ("ell_spmv (parent design)",
+                     "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+                     "meshlessmultigridpoisson_tpu/ops/kernels8.py:376"),
+    "sweep6": ("storage_chain", "meshlessmultigridpoisson_torch/csrc/storage_chain.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels6.py:515"),
+    "sweep6_chain": ("block_oneshot_sweep",
+                     "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+                     "meshlessmultigridpoisson_tpu/ops/kernels6.py:515"),
     "sweep7": ("coarse_smooth", "meshlessmultigridpoisson_torch/csrc/block_smooth.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels6.py:812"),
     "sweep8": ("colored_smooth", "meshlessmultigridpoisson_torch/csrc/block_smooth.cu",
@@ -189,8 +226,7 @@ ROLES = {
               "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
     "spmv4": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
               "meshlessmultigridpoisson_tpu/ops/kernels4.py:383"),
-    "sweep5": ("block_oneshot_sweep",
-               "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+    "sweep5": ("storage_chain", "meshlessmultigridpoisson_torch/csrc/storage_chain.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels4.py:620"),
     "spmv1": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
               "meshlessmultigridpoisson_tpu/ops/kernels.py:222"),
@@ -233,8 +269,8 @@ KTIME_N, KTIME_ITERS = 1_048_576, 5
 KTIME_ROLES = ("spmv2", "sweep2", "spmv4", "sweep4", "sweep5")
 BENCH_ROLES = ("spmv6", "sweep6", "sweep8", "sweep8_percolor", "stream14")
 # the parent design of each fused role: the sweep the loop of launches runs
-# in the A/B timing (one launch a color; the single-CTA chain)
-PARENT_ROLE = {"sweep8": "sweep8_percolor", "sweep7": "sweep6"}
+# in the A/B timing (one launch a color; the parent single-CTA chain)
+PARENT_ROLE = {"sweep8": "sweep8_percolor", "sweep7": "sweep6_chain"}
 SMOOTH_ITERS = 5  # sweeps a smoother call (every level's default)
 # compact_rows re-solves of the fine level outside the smoother: two a
 # V-cycle (mg/vcycle.py at its start, mg/krylov.py after the
@@ -263,6 +299,8 @@ KISO8_ROLES = ("kiso8_mxu", "kiso8_mxudef", "kiso8_vpu")
 # and depth (cli ns defaults), S steps from rest
 NS_SIZES = [170, 600, 2500, 10000]
 NS_STEPS = 12
+NS_AB_STEPS = 6  # steps a run of the NS SpMV A/B
+NS_AB_ROUNDS = 2  # rounds of parent, change, change, parent
 NS_ROLES = DIRICHLET_ROLES + ("bound2", "ppe2")
 NS_EXPECT_KERNELS = ["v7-exact", "v7-exact", "v7-exact", "v8-colored"]
 # the reference's TPU record of that run (2000 steps; history every 4th step)
@@ -403,6 +441,7 @@ def main(argv=None) -> int:
             ksweepprobe,
             kstream,
             ktime,
+            launchrank,
             sassloads,
         )
         from meshlessmultigridpoisson_torch.utils import profiling as pf
@@ -486,21 +525,106 @@ def main(argv=None) -> int:
         return "f32" if dtype == torch.float32 else "f64"
 
     def check_spmv(role, label, A):
+        """The redesigned ``ell_spmv`` (each row to ``lens``, a CTA a
+        128-row block, the table's column format) against its plain
+        version, the parent design (``spmv_rowwarp``: a warp a row over the
+        full width, int32 columns) and one ``torch.sparse`` CSR call; device
+        times from ``torch.profiler`` in turns parent, kernel, library,
+        kernel, parent (these calls run 0.002-0.3 ms), twice over where the
+        host's enqueue rate bounds the chain (the NS tables and the coarse
+        transfers: their 2-5 us readings spread most), each side's median
+        taken; both rows recorded, the parent's under its own role."""
         x = torch.randn(A.ncols, generator=gen, dtype=torch.float64).to(
             device=dev, dtype=A.vals.dtype)
+        P = gk.rowwarp_ell(A)
         y = gk.ell_spmv(A, x)
+        yr = gk.ell_spmv(P, x)
         torch.cuda.synchronize()
-        yp = gk.ell_spmv_plain(A.vals, A.cols, x)
-        err = float((y - yp).abs().max())
+        yp = gk.ell_spmv_lens_plain(A, x)
+        ypr = gk.ell_spmv_plain(P.vals, P.cols, x)
+        err, err_r = float((y - yp).abs().max()), float((yr - ypr).abs().max())
+        scale = float(yp.abs().max())
+        if not float((y - yr).abs().max()) <= TOL[("spmv", dname(A.vals.dtype))] * scale:
+            raise AssertionError(f"ell_spmv {label}: kernel and parent design disagree")
         ms = ms_of(lambda v: gk.ell_spmv(A, v), x, 50)
-        pms = ms_of(lambda v: gk.ell_spmv_plain(A.vals, A.cols, v), x, 10)
-        csr = pf.library_csr(A.vals, A.cols, A.ncols)
+        pr_ms = ms_of(lambda v: gk.ell_spmv(P, v), x, 50)
+        pms = ms_of(lambda v: gk.ell_spmv_lens_plain(A, v), x, 10)
+        csr = pf.library_csr(A.vals, A.global_cols().to(torch.int32), A.ncols)
         lms = ms_of(lambda v: csr @ v, x, 50)
-        dev_ms = device_times(ms, lambda v: gk.ell_spmv(A, v), lambda v: csr @ v, x, 50)
+        ops = {"parent": lambda v: gk.ell_spmv(P, v), "kernel": lambda v: gk.ell_spmv(A, v),
+               "library": lambda v: csr @ v}
+        turns = ("parent", "kernel", "library", "kernel", "parent")
+        if ms < pf.ENQUEUE_MS:
+            turns *= 2
+        d = [pf.device_ms(ops[k], x, 50) for k in turns]
+        dk, dp, dl = (statistics.median(v for k, v in zip(turns, d) if k == side)
+                      for side in ("kernel", "parent", "library"))
         dt = dname(A.vals.dtype)
-        record(role, f"ell_spmv {dt} {label}", ("spmv", dt), err,
-               float(yp.abs().max()), ms, pms, pf.spmv_bytes(A), pf.spmv_flops(A),
-               A.vals.dtype, lms, dev_ms)
+        nbytes, flops = pf.spmv_bytes(A), pf.spmv_flops(A)
+        b_ms = pf.bound_ms(nbytes, flops, A.vals.dtype, card_name)[0]
+        span = gk.u16_span(A.global_cols())
+        shape = (f"{A.nrows_pad} x {A.ncols}, width {A.width}, mean lens "
+                 f"{float(A.lens.float().mean()):.1f}, largest block span {span}")
+        print(f"  A/B ell_spmv {dt} {label} ({A.col_format}; {shape}): device ms "
+              + " / ".join(f"{k} {v:.4f}" for k, v in zip(turns, d))
+              + f"; medians kernel {dk:.4f} / parent {dp:.4f} / library {dl:.4f}; bound "
+              f"{b_ms:.4f} ms, kernel at {100 * b_ms / dk:.1f}% of bound, "
+              f"{'no slower' if dk <= dl else 'SLOWER'} than the library ({card})",
+              flush=True)
+        record(role, f"ell_spmv {dt} {label} ({A.col_format})", ("spmv", dt), err, scale,
+               ms, pms, nbytes, flops, A.vals.dtype, lms, (dk, dl),
+               extra=dict(col_format=A.col_format, parent_device_ms=dp,
+                          pct_of_bound=100 * b_ms / dk, device_ab_ms=d))
+        # the parent design on the same inputs: every stored entry, int32
+        p_nbytes, p_flops = pf.spmv_bytes(P), pf.spmv_flops(P)
+        record("spmv_rowwarp", f"ell_spmv parent design {dt} {label} (i32)", ("spmv", dt),
+               err_r, float(ypr.abs().max()), pr_ms, pms, p_nbytes, p_flops, A.vals.dtype,
+               lms, (dp, dl), extra=dict(
+                   pct_of_bound=100 * pf.bound_ms(p_nbytes, p_flops, A.vals.dtype,
+                                                  card_name)[0] / dp))
+
+    def check_chain(label, sw):
+        """The redesigned storage-order chain (``sweep6``, one
+        ``storage_chain`` launch a sweep) against its plain version and the
+        parent chain (``sweep6_chain``) on the same inputs, then one sweep
+        timed in turns parent, kernel, kernel, parent (each a single launch
+        of 0.5-110 ms: the chain time is the device time); both rows
+        recorded, the parent's under its own role."""
+        dtype = sw.A.vals.dtype
+        n = sw.A.nrows_pad
+        nb = n // gk.LANES
+        x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        xl = torch.tensor(0.3, dtype=dtype, device=dev)
+        par = dataclasses.replace(sw, role="sweep6_chain")
+        xk = gk.block_oneshot_sweep(sw, x0.clone(), xl, b)
+        xpar = gk.block_oneshot_sweep(par, x0.clone(), xl, b)
+        torch.cuda.synchronize()
+        staging = gk.CHAIN_INFO[sw.role]
+        t0 = time.perf_counter()
+        xp = gk.block_oneshot_sweep_plain(sw, x0.clone(), xl, b)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        if sw.kT.dtype == torch.bfloat16:
+            dt, scale = "bf16k", float((xp - x0).abs().max())
+        else:
+            dt, scale = dname(dtype), float(xp.abs().max())
+        k = 2 if nb > 2000 else 5
+        t = [ms_of(lambda v, s=s: gk.block_oneshot_sweep(s, v, xl, b), x0.clone(), k)
+             for s in (par, sw, sw, par)]
+        tk, tp = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        print(f"  A/B storage-order chain {dt} {label} ({nb} blocks, width {sw.A.width}; "
+              f"ELL tile staged, shared bytes {staging}): ms parent {t[0]:.4f} / "
+              f"kernel {t[1]:.4f} / kernel {t[2]:.4f} / parent {t[3]:.4f}; a link "
+              f"{1e3 * tk / nb:.2f} us (parent {1e3 * tp / nb:.2f}) ({card})", flush=True)
+        nbytes, flops = pf.sweep_bytes(sw), pf.sweep_flops(sw)
+        record(sw.role, f"storage_chain {dt} {label}, one sweep", ("sweep", dt),
+               float((xk - xp).abs().max()), scale, tk, pms, nbytes, flops, dtype,
+               extra=dict(parent_ms=tp, chain_ab_ms=t, staging=staging,
+                          link_us=1e3 * tk / nb))
+        record("sweep6_chain", f"block_oneshot_sweep parent chain {dt} {label}, one sweep",
+               ("sweep", dt), float((xpar - xp).abs().max()), scale, tp, pms, nbytes, flops,
+               dtype, extra=dict(link_us=1e3 * tp / nb))
 
     def check_sweep(label, sw):
         dtype = sw.A.vals.dtype
@@ -627,22 +751,27 @@ def main(argv=None) -> int:
     check_spmv(fine64.A.role, "fine matvec", fine64.A)
     check_spmv(coarse32.A.role, "coarsest matvec", coarse32.A)
     check_spmv(coarse64.A.role, "coarsest matvec", coarse64.A)
-    for name, ell in (("restriction fine->next", hier.restrict[-1]),
-                      ("prolongation next->fine", hier.prolong[-1])):
-        for dt in (torch.float32, torch.float64):
-            check_spmv("spmv6", name, gk.device_ell(ell, dt, dev, "spmv6"))
+    nl = len(g32.levels)
+    for i, R in enumerate(g32.restrict):  # the solve's transfer tables
+        check_spmv(R.role, f"restriction L{i + 1}->L{i}", R)
+    for i, P in enumerate(g32.prolong):
+        check_spmv(P.role, f"prolongation L{i}->L{i + 1}", P)
+    for name, ell in ((f"restriction L{nl - 1}->L{nl - 2}", hier.restrict[-1]),
+                      (f"prolongation L{nl - 2}->L{nl - 1}", hier.prolong[-1])):
+        check_spmv("spmv6", name, gk.device_ell(ell, torch.float64, dev, "spmv6", u16=True))
+    outer64 = gpu_level_from_operator(hier.levels[-1], dev, torch.float64, sweep=False)
+    check_spmv(outer64.A.role, "Dirichlet outer f64 operator", outer64.A)
     check_sweep("fine, colored order", fine32.sweep)
     check_sweep("fine, colored order", fine64.sweep)
     check_sweep("fine, colored order", dataclasses.replace(fine32.sweep,
                                                            role="sweep8_percolor"))
     check_sweep("fine, colored order", dataclasses.replace(fine64.sweep,
                                                            role="sweep8_percolor"))
-    check_sweep("fine, storage order", storage_order(fine32.sweep, "sweep6"))
-    check_sweep("fine, storage order", storage_order(fine64.sweep, "sweep6"))
+    for sw in (fine32.sweep, bf16k(fine32.sweep), fine64.sweep):  # the exact path's L3
+        check_chain("Dirichlet fine (the exact path's L3)", storage_order(sw, "sweep6"))
     check_sweep("coarsest, storage order", coarse32.sweep)
     check_sweep("coarsest, storage order", coarse64.sweep)
     check_sweep("fine, colored order", bf16k(fine32.sweep))
-    check_sweep("fine, storage order", bf16k(storage_order(fine32.sweep, "sweep6")))
     check_sweep("coarsest, storage order", bf16k(coarse32.sweep))
     for name, lv in (("Dirichlet fine", fine32), ("Dirichlet fine", fine64),
                      ("Dirichlet coarsest", coarse32), ("Dirichlet coarsest", coarse64)):
@@ -654,7 +783,7 @@ def main(argv=None) -> int:
         if dt == torch.float32:
             check_spmv(v2.A.role, "fine matvec (v2 level)", v2.A)
         check_class_sweep("fine, Dirichlet", v2.sweep, 0.0)
-    del g32, coarse64, fine64, hier, prob, v2
+    del g32, coarse64, fine64, hier, prob, v2, outer64
     torch.cuda.empty_cache()
 
     # the bench's stream probe at its own shape: sums of small integers
@@ -671,6 +800,39 @@ def main(argv=None) -> int:
            ("stream", "f32"), float((out - ref).abs().max()), float(ref.abs().max()),
            ms, pms, sv.nbytes + sc.nbytes + out.nbytes, 2 * sv.numel(), torch.float32)
     del sv, sc, out, ref
+
+    @contextlib.contextmanager
+    def parent_spmv():
+        """Every ``ell_spmv`` call inside on the parent design
+        (``spmv_rowwarp``: int32 columns, each row to the full width), the
+        tables converted once each: the name is swapped in every module of
+        the package that holds it.  Yields the launch counts the block
+        made, which must hold ``spmv_rowwarp`` launches and no ``spmv6``
+        or ``spmv8`` one."""
+        orig, tables, made = gk.ell_spmv, {}, {}
+        holders = [m for name, m in list(sys.modules.items())
+                   if name.split(".")[0] == "meshlessmultigridpoisson_torch"
+                   and getattr(m, "ell_spmv", None) is orig]
+
+        def parent(A, x):
+            key = id(A)
+            if key not in tables or tables[key][0] is not A:
+                tables[key] = (A, gk.rowwarp_ell(A))
+            return orig(tables[key][1], x)
+
+        before = dict(gk.COUNTS)
+        for m in holders:
+            m.ell_spmv = parent
+        try:
+            yield made
+        finally:
+            for m in holders:
+                m.ell_spmv = orig
+            torch.cuda.synchronize()
+            made.update({k: gk.COUNTS[k] - before[k] for k in before})
+        if made["spmv_rowwarp"] == 0 or made["spmv6"] or made["spmv8"]:
+            raise AssertionError(f"the parent-SpMV run did not take the parent design: "
+                                 f"{ {k: v for k, v in made.items() if v} }")
 
     def check_compact(label, C):
         """Kernel vs plain on one table: "bound2" re-solves x in place,
@@ -721,6 +883,14 @@ def main(argv=None) -> int:
             lv = gpu_level_from_operator(op, dev, dt)
             if name == "Neumann fine":  # the matvec of the f32 inner and f64 outer solves
                 check_spmv(lv.A.role, "Neumann fine matvec", lv.A)
+                if dt == torch.float64:
+                    outer = gpu_level_from_operator(op, dev, dt, sweep=False)
+                    check_spmv(outer.A.role, "Neumann outer f64 operator", outer.A)
+                    del outer
+                # rows of mixed lengths in storage order
+                for sw in ((lv.sweep, bf16k(lv.sweep)) if dt == torch.float32
+                           else (lv.sweep,)):
+                    check_chain("Neumann fine, storage order", storage_order(sw, "sweep6"))
             check_level_smooth(name, lv)
             if dt == torch.float32:
                 check_level_smooth(name, dataclasses.replace(lv, sweep=bf16k(lv.sweep)))
@@ -793,6 +963,55 @@ def main(argv=None) -> int:
             return fail(f"{path}: re-checked residual {recheck:.3e} >= 1e-8")
         if not rec.l1_error < 1e-6:
             return fail(f"{path}: l1_error {rec.l1_error:.3e} >= 1e-6")
+        if path in ("dirichlet", "neumann"):
+            # the timed solve with every ell_spmv on the parent design (the
+            # only kernel these paths changed), in turns parent, change,
+            # change, parent
+            walls, cycles = [], []
+            for side in ("parent", "change", "change", "parent"):
+                with parent_spmv() if side == "parent" else contextlib.nullcontext():
+                    r_ab, *_ = cli.run_solve(argv, problem=prob)
+                    torch.cuda.synchronize()
+                if not r_ab.final_residual < 1e-8:
+                    return fail(f"{path} SpMV A/B ({side}): residual "
+                                f"{r_ab.final_residual:.3e} >= 1e-8")
+                walls.append(r_ab.wall_time_s)
+                cycles.append(r_ab.cycles)
+            print(f"{path}: timed solve, ell_spmv parent / change / change / parent "
+                  + " / ".join(f"{w:.4f}" for w in walls) + f" s (passes {cycles}) "
+                  f"({card})", flush=True)
+            del r_ab
+        if path == "exact":  # the timed solve on the parent chain, in turns
+            walls = [rec.wall_time_s]
+            orig = gk.storage_chain
+
+            def parent_chain(sw, x_, x_lag, b_):
+                return gk.block_oneshot_sweep(
+                    dataclasses.replace(sw, role="sweep6_chain"), x_, x_lag, b_)
+
+            before = dict(gk.COUNTS)
+            try:
+                gk.storage_chain = parent_chain
+                rp, *_ = cli.run_solve(argv, problem=prob)
+                torch.cuda.synchronize()
+            finally:
+                gk.storage_chain = orig
+            n_parent = gk.COUNTS["sweep6_chain"] - before["sweep6_chain"]
+            n_new = gk.COUNTS["sweep6"] - before["sweep6"]
+            if n_parent == 0 or n_new != 0:
+                return fail(f"exact A/B: the parent run launched {n_parent} sweep6_chain "
+                            f"and {n_new} sweep6: it did not run on the parent chain")
+            rn, *_ = cli.run_solve(argv, problem=prob)
+            torch.cuda.synchronize()
+            walls += [rp.wall_time_s, rn.wall_time_s]
+            print(f"exact: timed solve, storage_chain {walls[0]:.4f} s / sweep6_chain "
+                  f"{walls[1]:.4f} s / storage_chain {walls[2]:.4f} s (passes {rec.cycles} / "
+                  f"{rp.cycles} / {rn.cycles}; {n_parent} sweep6_chain launches and no "
+                  f"sweep6 one in the parent's run) ({card})", flush=True)
+            if not (rp.final_residual < 1e-8 and rn.final_residual < 1e-8):
+                return fail(f"exact A/B: residuals {rp.final_residual:.3e}, "
+                            f"{rn.final_residual:.3e} >= 1e-8")
+            del rp, rn
         if path in ("exact", "v2"):  # the per-level profile, after the counts are read
             rec, *_ = cli.run_solve(argv + ["--profile"], problem=prob, use_v6=use_v6)
             print(f"{path}: per-level profile, cli solve {' '.join(extra)} "
@@ -803,6 +1022,9 @@ def main(argv=None) -> int:
                   flush=True)
             for row in rec.extra["profile"]["launch_shapes"]:
                 print("  " + json.dumps(row), flush=True)
+            _, ranked = launchrank.rank(json.loads(rec.to_json()))
+            print(f"{path}: excess by role, launchrank: "
+                  + ", ".join(f"{role} {ms:.2f} ms" for role, ms in ranked), flush=True)
             slow = [r["level"] for r in rec.extra["per_level"]
                     if not 0 < r["sweep_bound_ms"] <= r["sweep_ms"]
                     or not 0 < r["matvec_bound_ms"] <= r["matvec_ms"]]
@@ -814,7 +1036,7 @@ def main(argv=None) -> int:
 
     # ---- 4. the fractional-step Navier-Stokes path ---------------------------
     from meshlessmultigridpoisson_torch.models.fracstep import build_fracstep_problem
-    from meshlessmultigridpoisson_torch.models.fracstep_gpu import build_gpu_fracstep
+    from meshlessmultigridpoisson_torch.models.fracstep_gpu import build_gpu_fracstep, run_gpu
 
     t0 = time.perf_counter()
     nsp = build_fracstep_problem(sizes=NS_SIZES, poly_deg=6, device=dev)
@@ -887,7 +1109,42 @@ def main(argv=None) -> int:
           f"{ex['ppe_residual'][-1]:.3e})", flush=True)
     if not recheck < 1e-9:
         return fail(f"ns: re-checked PPE residual {recheck:.3e} >= 1e-9")
-    del rec, prob, last
+    # NS steps with every ell_spmv on the parent design (the only kernel
+    # this path changed), against the new kernel, in turns parent, change,
+    # change, parent, NS_AB_ROUNDS times; each run NS_AB_STEPS steps from
+    # rest on one repacked problem, its first step left out of the medians
+    gfs = build_gpu_fracstep(prob, dev)
+    step_s = {"parent": [], "change": []}
+    run_meds = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent") * NS_AB_ROUNDS:
+        times, t_prev = [], [time.perf_counter()]
+
+        def on_step(i, state, st, times=times, t_prev=t_prev):
+            now = time.perf_counter()
+            times.append(now - t_prev[0])
+            t_prev[0] = now
+
+        with parent_spmv() if side == "parent" else contextlib.nullcontext():
+            t_prev[0] = time.perf_counter()
+            _, h_ab, _ = run_gpu(prob, dev, steps=NS_AB_STEPS, t=gfs, on_step=on_step)
+        d = max(abs(a - b) / b for a, b in zip(h_ab, hist))
+        if not d <= NS_HIST_RTOL:
+            return fail(f"ns A/B ({side}): fs_residual deviates {d:.3e} from the main path")
+        step_s[side] += times[1:]
+        run_meds[side].append(statistics.median(times[1:]))
+    med = {k: statistics.median(v) for k, v in step_s.items()}
+    if max(run_meds["change"]) < min(run_meds["parent"]):
+        verdict = "the change faster in every run"
+    elif max(run_meds["parent"]) < min(run_meds["change"]):
+        verdict = "the change slower in every run"
+    else:
+        verdict = "not resolved: the runs' medians overlap"
+    print(f"ns: ell_spmv A/B, s a step (median of steps 1-{NS_AB_STEPS - 1} of each run, in "
+          f"turns): parent {[round(m, 4) for m in run_meds['parent']]}, change "
+          f"{[round(m, 4) for m in run_meds['change']]}; pooled median parent "
+          f"{med['parent']:.4f} / change {med['change']:.4f}; {verdict} ({card})",
+          flush=True)
+    del rec, prob, last, gfs
     torch.cuda.empty_cache()
 
     # ---- 5. the kernel bench -------------------------------------------------
@@ -909,6 +1166,14 @@ def main(argv=None) -> int:
         check_smooth(f"bench {n1m} rows, {sw.nphases} colors", sw)
         del sw
         torch.cuda.empty_cache()
+    nb1m = n1m // gk.LANES
+    check_chain(f"bench {n1m} rows, storage order", gk.BlockSweep(
+        A=gk.device_ell(bench_op["ell"], torch.float32, dev, "spmv6"),
+        kT=torch.from_numpy(bench_op["kT"]).to(dev, torch.float32),
+        lagc=torch.zeros(n1m, dtype=torch.float32, device=dev),
+        order=torch.arange(nb1m, dtype=torch.int32, device=dev), phase_ptr=(0, nb1m),
+        serial=True, role="sweep6"))
+    torch.cuda.empty_cache()
     print("main path (bench): python -m meshlessmultigridpoisson_torch.bench", flush=True)
     gk.reset_counts()
     res = bench.run(op=bench_op)
@@ -1053,7 +1318,10 @@ def main(argv=None) -> int:
                                 library_ms=c["library_ms"],
                                 **{k: c[k] for k in ("device_ms", "library_device_ms",
                                                      "loop_ms", "ab_ms", "staging",
-                                                     "x_lag_err")
+                                                     "x_lag_err", "col_format",
+                                                     "parent_device_ms", "pct_of_bound",
+                                                     "device_ab_ms", "parent_ms",
+                                                     "chain_ab_ms", "link_us")
                                    if c.get(k) is not None}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)

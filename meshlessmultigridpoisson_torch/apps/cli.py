@@ -189,6 +189,7 @@ def run_solve(argv=None, problem=None, use_v6=None):
 
     from meshlessmultigridpoisson_torch.mg import mixed
     from meshlessmultigridpoisson_torch.mg.gpu_backend import (
+        col_formats,
         gpu_hierarchy,
         gpu_level_from_operator,
     )
@@ -234,6 +235,7 @@ def run_solve(argv=None, problem=None, use_v6=None):
                     block_rows=args.block_rows),
     )
     rec.extra["level_kernels"] = [lv.kernel_kind for lv in ghier.levels]
+    rec.extra["spmv_col_formats"] = col_formats(ghier, op64)
     rec.extra["level_k_dtypes"] = [  # None: a v2-fallback level holds no K
         str(lv.sweep.kT.dtype) if isinstance(lv.sweep, gpu_kernels.BlockSweep) else None
         for lv in ghier.levels]

@@ -9,21 +9,23 @@
 // smoother does not update have zero K rows), stored TRANSPOSED as
 // kT[blk][c][r] = K_blk[r][c] — the reference's `kinvT` orientation.
 //
-// Replaces the reference package's
-//   meshlessmultigridpoisson_tpu/ops/kernels6.py:515 sor_sweep_tpu6  (the
-//     storage-order chain; on the TPU it reloads each block's x patches
-//     instead of keeping an 8-block union in a <= 32-slot scratch, a VMEM
-//     constraint, not math — here the single-CTA walk), and
-//     ops/kernels4.py:620 sor_sweep_tpu5 (the same chain, probes.ktime).
-// The solve's colored sweep (kernels8.py sor_sweep_tpu8) and coarsest
-// storage-order sweep (kernels6.py sor_sweep_tpu7) run in block_smooth.cu,
-// one launch per smoother call.  This file keeps the parent design of the
-// colored sweep, one launch per color, as the timing-only role
-// "sweep8_percolor" (the bench and chip_smoke.py time it beside the fused
-// kernel).  CTA i handles blocks i, i + gridDim.x, ... of the phase list,
-// with a block barrier between consecutive blocks, so a grid of one CTA is
-// the exact storage-order chain and a grid of one CTA per block is one
-// color's parallel phase.
+// The parent design of two kernels that now run elsewhere, kept as
+// timing-only roles (the bench and chip_smoke.py time each beside its
+// redesign):
+//   "sweep6_chain": the storage-order chain on one CTA, the parent of
+//     storage_chain.cu (roles "sweep6", meshlessmultigridpoisson_tpu/ops/
+//     kernels6.py:515 sor_sweep_tpu6, which on the TPU reloads each block's
+//     x patches instead of keeping an 8-block union in a <= 32-slot
+//     scratch, a VMEM constraint, not math; and "sweep5", ops/kernels4.py:620
+//     sor_sweep_tpu5, probes.ktime);
+//   "sweep8_percolor": the colored sweep (kernels8.py sor_sweep_tpu8), one
+//     launch per color, the parent of block_smooth.cu's colored_smooth; the
+//     coarsest storage-order sweep (kernels6.py sor_sweep_tpu7) runs in
+//     block_smooth.cu's coarse_smooth.
+// The sweep probes below run here too.  CTA i handles blocks i,
+// i + gridDim.x, ... of the phase list, with a block barrier between
+// consecutive blocks, so a grid of one CTA is the exact storage-order chain
+// and a grid of one CTA per block is one color's parallel phase.
 //
 // K in bf16 (`solve --fast-k`): the instance with KT = __nv_bfloat16 takes
 // f32 vals/x/b/lag_col and computes what the TPU's fast mode computes
@@ -34,17 +36,18 @@
 // in f32, 32 KB in bf16 — about 68 MB per f32 sweep of the 133k-row fine
 // level) plus the gather of the block's ELL rows, and one launch per color.
 // Storage order: the serial chain — one block after another on one SM, each
-// a gather, a barrier, a 128 x 128 product and a barrier, ~5.8 us per block
-// (H100, PERF.md), ~6 ms per sweep of the 1,041-block 133k level; the card's
-// other 131 SMs idle.  This first version keeps both simple: the K product
+// a gather, a barrier, a 128 x 128 product and a barrier, ~13 us per block
+// (H100, PERF.md), 13.6 ms per sweep of the 1,041-block 133k level; the
+// card's other 131 SMs idle.  This first version keeps both simple: the K product
 // reads kT with consecutive threads on consecutive addresses (coalesced
 // 512 B rows in f32), the 512 threads split the 128 inputs in four quarters
 // to keep every thread busy, and t lives in shared memory.  512 threads per
 // CTA (16 warps, 8 rows each for the gather) measured 1.7x faster per fine
 // sweep than 256 and ahead of 1024 end to end on the slice (H100, PERF.md).
 // block_smooth.cu stages K by TMA and fuses a smoother call's colors and
-// sweeps into one launch; shortening the long storage-order chain is later
-// work.
+// sweeps into one launch; storage_chain.cu shortens the storage-order
+// chain's link (K and ELL rows fetched ahead, all 128 rows gathered at
+// once, each row read to its last nonzero).
 //
 // Timing-only variants (the reference's scripts/ksweepprobe.py:110
 // make_sweep_variant; probes/ksweepprobe.py): the kernel is templated on a

@@ -95,11 +95,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using mmp_sweep::bulk_load;
 using mmp_sweep::k_val;
 using mmp_sweep::kBlk;
 using mmp_sweep::kSplit;
 using mmp_sweep::kThreads;
 using mmp_sweep::kWarp;
+using mmp_sweep::mbar_expect;
+using mmp_sweep::mbar_init;
+using mmp_sweep::mbar_wait;
 using mmp_sweep::t_in;
 using mmp_sweep::warp_sum;
 
@@ -187,50 +191,6 @@ __host__ __device__ inline Layout make_layout(int nk, int ne, int width,
   off += al128(m * sizeof(int));
   L.total = off;
   return L;
-}
-
-// ---- TMA and mbarrier (inline PTX) ---------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(1u)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 // ---- the walk: a CTA's blocks, colors in order, `iters` sweeps ------------

@@ -1,4 +1,4 @@
-// ell_spmv<T>: y = A x for a row-major ELL matrix with global int32 columns.
+// ell_spmv<T>: y = A x for a row-major ELL matrix.
 //
 // Replaces two TPU kernels of the reference package, which differ only in
 // their table layout:
@@ -14,19 +14,43 @@
 // carried over: here a row is `width` contiguous (value, column) pairs,
 // padding entries carry value 0 and a valid column.
 //
-// What bounds it on an H100: bytes per stored entry.  Each entry streams a
-// value (4 or 8 B) and a column (4 B) once and gathers x[col]; the gathered x
-// of a kd-tile-ordered operator is spatially local and stays in L1/L2, so the
-// kernel is a stream of 8 (f32) or 12 (f64) B per entry against 3.35 TB/s.
-// The design keeps that stream coalesced: one warp per row reads the row's
-// entries with consecutive lanes on consecutive addresses (a 70-entry
-// deg-6 row is three 32-lane passes), sums in registers, and reduces with
-// warp shuffles.  No shared memory, no atomics.
+// What bounds it on an H100: bytes per nonzero.  Each nonzero streams a
+// value (4 or 8 B) and a column (4 B, or 2 B in the u16 format) once and
+// gathers x[col]; the gathered x of a kd-tile-ordered operator is spatially
+// local and stays in L1/L2, so the kernel is a stream of 6-12 B per nonzero
+// against 3.35 TB/s.
+//
+// The production kernel, ell_spmv_blk<T, Col> (every solve role), does two
+// things about that stream:
+//   * it reads each row only to lens[r], one past its last nonzero (an
+//     int32 a row, built at repack).  Implicit condensation widens the rows
+//     next to the boundary and the ELL pads every row to the widest, so a
+//     Neumann level's rows are half padding (fill 54-55%): the full-width
+//     walk streamed ~1.85x the nonzeros' bytes;
+//   * one CTA takes a 128-row block (8 warps, 16 rows each), the mapping the
+//     kiso7 probe measured 15% faster than 8 rows a CTA; on a table too
+//     small to give two CTAs an SM that way (the coarse transfers), 64 to
+//     8 rows.  A warp sums four rows at once (one below four rows a warp,
+//     whose first steps it loads before the row's length arrives), two
+//     32-entry steps of each in flight (every value and column loaded
+//     before any x is gathered), each row's lanes starting at the 8-entry
+//     boundary below the row's first entry, so that every load of a warp
+//     covers whole 32-byte sectors of values and int32 columns; the row
+//     sums leave in one coalesced store.
+//   Column format, by the repack's rule: int32 global columns (kColI32), or
+//   (kColU16) a 16-bit unsigned offset from the int32 base column of the
+//   row's 128-row block, where every block's columns span at most 65,535
+//   and no sweep reads the table (the transfers and the f64 outer
+//   operator).
+// The parent design, one warp per row over the full width, 8 rows a CTA
+// (ell_spmv_kernel <kBase, kColI32, kAffine> below), stays as the entry
+// points mmp_ell_spmv_f32/f64: the timing-only role "spmv_rowwarp", and the
+// probes below.
 //
 // Timing-only variants (the reference's scripts/kprobe.py:138
 // spmv4_variant; probes/kprobe.py): the kernel is templated on a
-// compile-time Mode.  The production entry points instantiate kBase only,
-// and their code is the same as before the variants existed.  The others
+// compile-time Mode.  The parent entry points ("spmv_rowwarp") instantiate
+// kBase only, and their code is the same as before the variants existed.  The others
 // compute other functions, are f32 only and never reach a solve; each
 // drops one part of the row's work so that the base time minus the
 // variant's time is that part's cost:
@@ -48,7 +72,7 @@
 //                           column of the row's 128-row block (6 B per f32
 //                           entry; the host prep refuses a block whose
 //                           columns span more than 65,535)
-//   row source     kAffine  y row r = A row r (the production mapping: one
+//   row source     kAffine  y row r = A row r (the parent mapping: one
 //                           warp per row, 8 rows per CTA);
 //                  kIds     y block j = A block ids[j];
 //                  kIdsGuarded / kIdsUnguarded: the same on an id table
@@ -59,8 +83,8 @@
 //                  (8 warps, a warp per row, 16 rows each): its id (and,
 //                  for kColU16, its base column) is read once by one
 //                  thread and shared, so the dependent load is paid once
-//                  a block.  The row's arithmetic is the production code's.
-// The production entry points are <kBase, kColI32, kAffine>.
+//                  a block.  The row's arithmetic is the parent code's.
+// The parent entry points are <kBase, kColI32, kAffine>.
 //
 // ell_rowsum_mma<Passes> (the reference's scripts/kiso8.py:136 spmv_var,
 // its MXU row sums; probes/kiso8.py): y = A x with the row sums taken by
@@ -189,6 +213,149 @@ int launch_ell_spmv(const T* vals, const ColT<Col>* cols, const int* col_base,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- ell_spmv_blk: the production kernel (see the header) ---------------
+
+constexpr int kBlkWarps = 8;    // 256 threads a CTA
+constexpr int kRowsAtOnce = 4;  // rows a warp sums together
+constexpr int kSteps = 2;       // 32-entry steps of each row in flight
+constexpr int kSector = 8;      // f32 values / int32 columns a 32-byte sector
+
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// A CTA takes 8 * rpw consecutive rows (rpw = 1, 2, 4, 8 or 16 rows a
+// warp: 8 to 128 rows, within one 128-row block, so a u16 table's base
+// column is the CTA's), warp w rows w * rpw .. + rpw - 1, G at a time:
+// G = 4, or G = 1 below 4 rows a warp.  G = 1 serves the tables too small
+// to hide a load: each row's first kSteps steps are loaded before its
+// length arrives, bounded by the row's width (past lens lie zero-valued
+// padding entries with valid columns), and summed only below lens.
+template <int Col>
+__device__ __forceinline__ int col_at(const ColT<Col>* __restrict__ cols,
+                                      int col0, int e) {
+  if constexpr (Col == kColU16) {
+    return col0 + static_cast<int>(cols[e]);
+  } else {
+    return cols[e];
+  }
+}
+
+template <typename T, int Col, int G>
+__global__ void __launch_bounds__(kWarp * kBlkWarps)
+ell_spmv_blk_kernel(const T* __restrict__ vals,
+                    const ColT<Col>* __restrict__ cols,
+                    const int* __restrict__ col_base,
+                    const int* __restrict__ lens, int width, int nrows,
+                    int rpw, const T* __restrict__ x, T* __restrict__ y) {
+  const int lane = threadIdx.x % kWarp;
+  const int cta0 = blockIdx.x * kBlkWarps * rpw;
+  const int r0 = cta0 + (threadIdx.x / kWarp) * rpw;
+  const int col0 = Col == kColU16 ? col_base[cta0 / kBlockRows] : 0;
+  // lane i < rpw holds the length of the warp's row r0 + i (0 past nrows)
+  const int my_len = (lane < rpw && r0 + lane < nrows) ? lens[r0 + lane] : 0;
+  T mine = T(0);  // lane i < rpw: row r0 + i's sum
+  for (int g = 0; g < rpw; g += G) {
+    // entry offsets: the wrapper keeps nrows * width below 2^31
+    int beg[G], end[G], start[G];
+    T acc[G];
+    int s0 = 0;
+    int c0[kSteps];
+    T v0[kSteps];
+    if constexpr (G == 1) {  // the first steps, before the length
+      beg[0] = (r0 + g) * width;
+      start[0] = beg[0] & ~(kSector - 1);
+      const bool row = r0 + g < nrows;
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) {
+        const int e = start[0] + t * kWarp + lane;
+        const bool in = row && e >= beg[0] && e < beg[0] + width;
+        c0[t] = in ? col_at<Col>(cols, col0, e) : -1;
+        v0[t] = in ? vals[e] : T(0);
+      }
+      s0 = kSteps;
+    }
+    int n = 0;  // 32-entry steps, the most any of the rows needs
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int len = __shfl_sync(0xffffffffu, my_len, g + q);
+      beg[q] = (r0 + g + q) * width;
+      end[q] = beg[q] + len;
+      start[q] = beg[q] & ~(kSector - 1);
+      n = max(n, len > 0 ? (end[q] - start[q] + kWarp - 1) / kWarp : 0);
+      acc[q] = T(0);
+    }
+    if constexpr (G == 1) {
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) {
+        const int e = start[0] + t * kWarp + lane;
+        if (c0[t] >= 0 && e < end[0]) acc[0] += v0[t] * x[c0[t]];
+      }
+    }
+    for (int s = s0; s < n; s += kSteps) {
+      // every (row, step) slot's value and column first, then the gathers
+      int c[G][kSteps];
+      T v[G][kSteps];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+#pragma unroll
+        for (int t = 0; t < kSteps; ++t) {
+          const int e = start[q] + (s + t) * kWarp + lane;
+          const bool in = e >= beg[q] && e < end[q];
+          c[q][t] = in ? col_at<Col>(cols, col0, e) : -1;
+          v[q][t] = in ? vals[e] : T(0);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+#pragma unroll
+        for (int t = 0; t < kSteps; ++t) {
+          if (c[q][t] >= 0) acc[q] += v[q][t] * x[c[q][t]];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const T sum = warp_allsum(acc[q]);
+      if (lane == g + q) mine = sum;
+    }
+  }
+  if (lane < rpw && r0 + lane < nrows) y[r0 + lane] = mine;
+}
+
+// rows a warp: 16 (a CTA a 128-row block) where that gives at least
+// kFillCtas CTAs, else 8, 4, 2 or 1, so that a small table still spreads
+// over the card (a 2,560-row transfer is 20 blocks of 128 rows)
+constexpr int kFillCtas = 264;  // two CTAs an SM of an H100
+
+inline int rows_per_warp(int nrows) {
+  for (int rpw = 16; rpw > 1; rpw /= 2) {
+    if ((nrows + kBlkWarps * rpw - 1) / (kBlkWarps * rpw) >= kFillCtas) return rpw;
+  }
+  return 1;
+}
+
+template <typename T, int Col>
+int launch_ell_spmv_blk(const T* vals, const ColT<Col>* cols,
+                        const int* col_base, const int* lens, int width,
+                        int nrows, const T* x, T* y, void* stream) {
+  const int rpw = rows_per_warp(nrows);
+  const int grid = (nrows + kBlkWarps * rpw - 1) / (kBlkWarps * rpw);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (grid > 0 && rpw >= kRowsAtOnce) {
+    ell_spmv_blk_kernel<T, Col, kRowsAtOnce><<<grid, kWarp * kBlkWarps, 0, st>>>(
+        vals, cols, col_base, lens, width, nrows, rpw, x, y);
+  } else if (grid > 0) {
+    ell_spmv_blk_kernel<T, Col, 1><<<grid, kWarp * kBlkWarps, 0, st>>>(
+        vals, cols, col_base, lens, width, nrows, rpw, x, y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 constexpr int kMmaWarps = 8;  // 8 warps x 16 rows = 128 rows per CTA
 
 __device__ __forceinline__ uint32_t to_tf32(float f) {
@@ -265,6 +432,39 @@ int launch_rowsum_mma(const float* vals, const int* cols, int width,
 
 }  // namespace
 
+// The production SpMV.  cols: int32 global columns (u16 = 0) or the
+// unsigned 16-bit offsets from col_base, one int32 a 128-row block (u16 =
+// 1); lens: one past each row's last nonzero.
+extern "C" int mmp_ell_spmv_blk_f32(const float* vals, const void* cols,
+                                    const int* col_base, const int* lens,
+                                    int width, int nrows, const float* x,
+                                    float* y, int u16, void* stream) {
+  if (u16) {
+    return launch_ell_spmv_blk<float, kColU16>(
+        vals, static_cast<const unsigned short*>(cols), col_base, lens, width,
+        nrows, x, y, stream);
+  }
+  return launch_ell_spmv_blk<float, kColI32>(
+      vals, static_cast<const int*>(cols), nullptr, lens, width, nrows, x, y,
+      stream);
+}
+
+extern "C" int mmp_ell_spmv_blk_f64(const double* vals, const void* cols,
+                                    const int* col_base, const int* lens,
+                                    int width, int nrows, const double* x,
+                                    double* y, int u16, void* stream) {
+  if (u16) {
+    return launch_ell_spmv_blk<double, kColU16>(
+        vals, static_cast<const unsigned short*>(cols), col_base, lens, width,
+        nrows, x, y, stream);
+  }
+  return launch_ell_spmv_blk<double, kColI32>(
+      vals, static_cast<const int*>(cols), nullptr, lens, width, nrows, x, y,
+      stream);
+}
+
+// The parent design (role "spmv_rowwarp", timing only): a warp per row over
+// the full width, 8 rows a CTA, int32 columns.
 extern "C" int mmp_ell_spmv_f32(const float* vals, const int* cols, int width,
                                 int nrows, const float* x, float* y,
                                 void* stream) {
@@ -304,8 +504,8 @@ extern "C" int mmp_spmv_probe_f32(const float* vals, const int* cols,
 
 // The kiso probes (f32).  variant: 0-3 the kiso6 instances
 // <kColU16|kColI32, kIdsGuarded|kIdsUnguarded> as (i16, guarded) = (1, 1),
-// (1, 0), (0, 1), (0, 0) -> 0, 1, 2, 3; 4 kiso7 affine (the production
-// instance), 5 kiso7 ids; 6 / 7 ell_rowsum_mma<2> / <1>.  cols is int32
+// (1, 0), (0, 1), (0, 0) -> 0, 1, 2, 3; 4 kiso7 affine (the parent
+// production instance), 5 kiso7 ids; 6 / 7 ell_rowsum_mma<2> / <1>.  cols is int32
 // or, for the u16 variants, the unsigned 16-bit offsets; col_base (u16
 // only) one int32 a 128-row block; ids (id variants) one a 128-row output
 // block.  nrows: the rows of y for variants 4, 6, 7, the id table's length

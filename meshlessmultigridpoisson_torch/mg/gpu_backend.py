@@ -5,8 +5,12 @@ engine (mg/vcycle.py) calls ``ops.smoothers``, which dispatches here when
 handed a GpuLevel.  A GpuLevel repacks a host-built f64 LevelOperator into
 the kernels' layouts on ``device``:
 
-* the level matrix as a row-major ELL with global int32 columns
-  (``ops.gpu_kernels.DeviceEll``), for ``ell_spmv``;
+* the level matrix as a row-major ELL (``ops.gpu_kernels.DeviceEll``),
+  with each row's ``lens`` (one past its last nonzero), for ``ell_spmv``:
+  global int32 columns where a sweep reads the table; u16 offsets from a
+  per-128-row-block base where none does (the transfers and the
+  ``sweep=False`` f64 outer operator) and every block spans at most 65,535
+  columns (``device_ell(..., u16=True)``; ``DeviceEll.col_format``);
 * the one-shot block GS tables for ``block_oneshot_sweep``: per-block
   K = (D/omega + L)^-1 with omega * omega_scale and the smooth mask folded
   in (f32, f64, or bf16 under ``k_dtype``), and the block execution order.
@@ -22,8 +26,8 @@ the kernels' layouts on ``device``:
   "v7-exact" otherwise.  Roles: ``sweep7`` (the fused one-CTA
   ``coarse_smooth``) for a v7-exact level whose vectors fit its shared
   memory (``ops.gpu_kernels.coarse_smooth_fits``), else ``sweep6`` (the
-  single-CTA chain of ``block_oneshot_sweep``, the same function), which
-  every v6-oneshot level runs;
+  single-CTA ``storage_chain``, the same function), which every
+  v6-oneshot level runs;
 * or, on a "v2-fallback" level (``use_v6=False``, or a level the
   reference's v6 layout refuses: ``ops.gpu_kernels.v6_supported``), the
   K-free class SOR tables for ``class_sor_sweep`` (``ClassSweep``: diag,
@@ -178,7 +182,8 @@ def gpu_level_from_operator(
     sweep_order: str = "colored", k_dtype=None, use_v6: bool | None = None,
 ) -> GpuLevel:
     """Repack a host LevelOperator for the kernels (``sweep=False``: matvec
-    tables only, as for the f64 outer residual operator).  ``k_dtype``
+    tables only, as for the f64 outer residual operator, with u16 columns
+    where the rule allows).  ``k_dtype``
     stores the sweep's K in another dtype (``torch.bfloat16`` with f32
     vectors: ``--fast-k``).  ``use_v6``: see ``runs_v2``; a v2 level holds
     no K.  Raises on a layout the kernels cannot take."""
@@ -203,7 +208,7 @@ def gpu_level_from_operator(
             colors = color_blocks(pids, nb)
             colored = colored_refusal(pids, nb, colors) is None
     role = "spmv2" if v2 else ("spmv8" if colored else "spmv6")
-    A = device_ell(op.A, dtype, device, role=role)
+    A = device_ell(op.A, dtype, device, role=role, u16=not sweep)
 
     def f(v):
         return v.to(device=device, dtype=dtype)
@@ -257,18 +262,31 @@ def gpu_level_from_operator(
     )
 
 
+def col_formats(hier: Hierarchy, op64: GpuLevel | None = None) -> dict:
+    """The column format ("i32" or "u16") the repack took for each table of
+    a GPU hierarchy (and of the f64 outer operator ``op64``)."""
+    out = dict(levels=[lv.A.col_format for lv in hier.levels],
+               restrict=[A.col_format for A in hier.restrict],
+               prolong=[A.col_format for A in hier.prolong])
+    if op64 is not None:
+        out["outer_f64"] = op64.A.col_format
+    return out
+
+
 def gpu_hierarchy(hier: Hierarchy, device, dtype=torch.float32,
                   sweep_order: str = "colored", k_dtype=None,
                   use_v6: bool | None = None) -> Hierarchy:
     """Convert a host hierarchy to the GPU backend (transfers included).
     Transfers keep ``spmv6`` whatever ``use_v6`` says, and take ``spmv2``
-    where the v6 layout refuses them (tpu_backend.tpu_hierarchy)."""
+    where the v6 layout refuses them (tpu_backend.tpu_hierarchy); no sweep
+    reads them, so they take u16 columns where the rule allows."""
     levels = tuple(gpu_level_from_operator(op, device, dtype, sweep_order=sweep_order,
                                            k_dtype=k_dtype, use_v6=use_v6)
                    for op in hier.levels)
 
     def transfer(ell):
-        return device_ell(ell, dtype, device, "spmv6" if v6_supported(ell) else "spmv2")
+        return device_ell(ell, dtype, device, "spmv6" if v6_supported(ell) else "spmv2",
+                          u16=True)
 
     return Hierarchy(levels=levels, restrict=tuple(map(transfer, hier.restrict)),
                      prolong=tuple(map(transfer, hier.prolong)))

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Eight kernels (six sources in ``meshlessmultigridpoisson_torch/csrc/``)
+Ten kernels (seven sources in ``meshlessmultigridpoisson_torch/csrc/``)
 replace fourteen Pallas TPU kernels of the reference package and eight of
 its timing probes:
 
@@ -9,12 +9,21 @@ CUDA kernel (role counter)         TPU kernel it replaces
 =================================  ===========================================
 ``ell_spmv`` (``spmv6``)           ops/kernels6.py ``spmv_tpu6``: coarsest
                                    matvec, restrictions, prolongations (and
-                                   every matvec of ``--sweep-order exact``)
+                                   every matvec of ``--sweep-order exact``);
+                                   ``ell_spmv_blk``: a CTA a 128-row block,
+                                   each row read to ``lens``, i32 or u16
+                                   columns
 ``ell_spmv`` (``spmv8``)           ops/kernels8.py ``spmv_tpu8``: fine-level
                                    matvec (and the f64 outer residual)
-``block_oneshot_sweep`` (sweep6)   ops/kernels6.py:515 ``sor_sweep_tpu6``:
+``ell_spmv`` (``spmv_rowwarp``)    the parent design of the SpMV roles (a
+                                   warp a row over the full width, 8 rows a
+                                   CTA; timing only: ``chip_smoke.py``)
+``storage_chain`` (``sweep6``)     ops/kernels6.py:515 ``sor_sweep_tpu6``:
                                    storage-order block GS on levels whose
-                                   8-block union exceeds 32 x patches
+                                   8-block union exceeds 32 x patches; one
+                                   CTA, K and ELL rows fetched ahead
+``block_oneshot_sweep``            the parent design of ``sweep6``, the
+(``sweep6_chain``)                 single-CTA chain (timing only)
 ``coarse_smooth`` (sweep7)         ops/kernels6.py:812 ``sor_sweep_tpu7``:
                                    storage-order block GS (coarsest level);
                                    a smoother call in one CTA, the level in
@@ -44,7 +53,7 @@ CUDA kernel (role counter)         TPU kernel it replaces
                                    v2-fallback level matvec and transfers
 ``ell_spmv`` (``spmv4``)           ops/kernels4.py:383 ``spmv_tpu4``
                                    (``probes.ktime``)
-``block_oneshot_sweep`` (sweep5)   ops/kernels4.py:620 ``sor_sweep_tpu5``:
+``storage_chain`` (``sweep5``)     ops/kernels4.py:620 ``sor_sweep_tpu5``:
                                    the storage-order one-shot sweep at
                                    128-row blocks (``probes.ktime``)
 ``ell_spmv`` (``spmv1``)           ops/kernels.py:222 ``spmv_tpu``: the v1
@@ -92,7 +101,15 @@ all its roles.  A smoother call (``mg.gpu_backend.smooth``: ``iters``
 sweeps, each followed by the Lagrange relax and the Neumann re-solve) on a
 ``sweep8`` or ``sweep7`` level is one launch of ``block_smooth``; its plain
 version is ``smooth_loop`` over the plain kernels, the loop of separate
-launches that still runs ``sweep6`` and the class sweeps.
+launches that still runs ``sweep6`` (one ``storage_chain`` launch a sweep)
+and the class sweeps.
+
+``ell_spmv`` reads each row only to ``DeviceEll.lens`` (one past its last
+nonzero); a table no sweep reads (the transfers, the f64 outer operator)
+holds u16 column offsets from a per-block base where every 128-row block
+spans at most 65,535 columns (``device_ell(..., u16=True)``), int32
+columns otherwise.  The SpMV probes (``spmvp_*``, ``kiso*``) time the
+parent design.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a``, one process per
 source started together, linked into a shared library with a plain C
@@ -131,20 +148,22 @@ import torch
 from meshlessmultigridpoisson_torch.ops.ell import EllMatrix, global_cols
 
 LANES = 128  # rows per sweep block
+MAX_ENTRIES = 2**31 - 1  # the SpMV and chain kernels' int32 entry offsets
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmmp_kernels.so")
 SOURCES = ("ell_spmv.cu", "block_oneshot_sweep.cu", "compact_rows.cu",
-           "stream_ceiling.cu", "class_sor_sweep.cu", "block_smooth.cu")
+           "stream_ceiling.cu", "class_sor_sweep.cu", "block_smooth.cu",
+           "storage_chain.cu")
 HEADERS = ("block_sweep_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
-          "sweep8_percolor": 0,
+          "sweep8_percolor": 0, "spmv_rowwarp": 0, "sweep6_chain": 0,
           "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0, "sweep2": 0,
           "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0, "spmv1": 0,
           "spmv3": 0, "sweep1": 0, "probe_base": 0, "probe_hoist": 0,
@@ -156,6 +175,7 @@ COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "kiso6_i32_unguarded": 0, "kiso7_affine": 0, "kiso7_ids": 0,
           "kiso8_mxu": 0, "kiso8_mxudef": 0, "kiso8_vpu": 0}
 SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4", "spmv1", "spmv3")
+SPMV_PARENT = "spmv_rowwarp"  # the parent SpMV design: timing only
 
 # launches of the solve's kernels by "role rows x cols" (the rows a launch
 # writes, the length of the vector it reads; a fused smoother launch adds
@@ -241,6 +261,15 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, i, i, p, p, p]
+            for name in ("mmp_ell_spmv_blk_f32", "mmp_ell_spmv_blk_f64"):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [p, p, p, p, i, i, p, p, i, p]
+            for name in ("mmp_storage_chain_f32", "mmp_storage_chain_f64",
+                         "mmp_storage_chain_f32_bf16k"):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [p, p, p, i, p, p, p, p, p, i, p, p, ctypes.POINTER(i)]
             for name in ("mmp_block_sweep_f32", "mmp_block_sweep_f64",
                          "mmp_block_sweep_f32_bf16k"):
                 fn = getattr(lib, name)
@@ -313,20 +342,43 @@ def _launch_ok(rc: int, what: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceEll:
-    """Row-major ELL with global int32 columns (padding: value 0).
+    """Row-major ELL (padding: value 0) with, per row, ``lens``: one past
+    its last nonzero, where ``ell_spmv`` stops reading it.
 
-    ``role`` names the TPU kernel whose part this matrix plays ("spmv6" for
-    the coarsest level and the transfers, "spmv8" for colored levels,
-    "spmv2" for v2-fallback levels and transfers the v6 layout refuses,
-    "spmv4" in ``probes.ktime``, "spmv1" and "spmv3" in ``probes.kexp``),
-    or, made by ``spmv_probe_ell`` for ``spmv_probe`` only, a
-    ``SPMV_PROBE_MODES`` role (``probes.kprobe``).
+    Columns: global int32 (``col_base`` None), or (``col_format`` "u16")
+    int16 tensors holding each entry's unsigned 16-bit offset from
+    ``col_base`` of its 128-row block, the format of tables no sweep reads
+    (``device_ell(..., u16=True)``).  ``role`` names the TPU kernel whose
+    part this matrix plays ("spmv6" for the coarsest level and the
+    transfers, "spmv8" for colored levels, "spmv2" for v2-fallback levels
+    and transfers the v6 layout refuses, "spmv4" in ``probes.ktime``,
+    "spmv1" and "spmv3" in ``probes.kexp``), "spmv_rowwarp" for the parent
+    design (timing only), or, made by ``spmv_probe_ell`` for
+    ``spmv_probe`` only, a ``SPMV_PROBE_MODES`` role (``probes.kprobe``).
     """
 
     vals: torch.Tensor  # [nrows_pad, width] f32 or f64
-    cols: torch.Tensor  # [nrows_pad, width] int32
+    cols: torch.Tensor  # [nrows_pad, width] int32, or int16 (u16 offsets)
     ncols: int  # length of the x it multiplies
     role: str
+    lens: torch.Tensor | None = None  # [nrows_pad] int32; None: full rows
+    col_base: torch.Tensor | None = None  # [nrows_pad / 128] int32 (u16)
+
+    def __post_init__(self):
+        """The tables are checked once, here (a launch checks only x): one
+        device, contiguous, the column dtype of the format, the shapes,
+        and entry offsets within the kernels' int32."""
+        dev, shape = self.vals.device, tuple(self.vals.shape)
+        u16 = self.col_base is not None
+        _check("vals", self.vals, dev)
+        _check("cols", self.cols, dev, torch.int16 if u16 else torch.int32, shape)
+        if self.lens is not None:
+            _check("lens", self.lens, dev, torch.int32, shape[:1])
+        if u16:
+            _check("col_base", self.col_base, dev, torch.int32,
+                   (-(-shape[0] // KISO_BLOCK),))
+        if self.vals.numel() > MAX_ENTRIES:
+            raise ValueError(f"{self.vals.numel()} entries overflow the kernels' int32")
 
     @property
     def nrows_pad(self) -> int:
@@ -336,41 +388,116 @@ class DeviceEll:
     def width(self) -> int:
         return self.vals.shape[1]
 
+    @property
+    def col_format(self) -> str:
+        return "i32" if self.col_base is None else "u16"
 
-def device_ell(ell: EllMatrix, dtype, device, role: str) -> DeviceEll:
-    if role not in SPMV_ROLES:
+    def global_cols(self) -> torch.Tensor:
+        """[nrows_pad, width] int64 global columns, whatever the format."""
+        if self.col_base is None:
+            return self.cols.long()
+        off = (self.cols.long() & 0xFFFF).view(-1, KISO_BLOCK, self.width)
+        return (off + self.col_base.long()[:, None, None]).view(self.cols.shape)
+
+
+def row_lens(vals: torch.Tensor) -> torch.Tensor:
+    """[nrows] int32: one past each row's last nonzero (0 for a row of
+    zeros).  The last nonzero, not a count: an interior weight that is
+    exactly zero does not cut the row short."""
+    k = torch.arange(1, vals.shape[1] + 1, device=vals.device)
+    return torch.where(vals != 0, k, 0).amax(dim=1).to(torch.int32)
+
+
+def u16_span(cols: torch.Tensor) -> int | None:
+    """The largest column span of a 128-row block of global columns
+    ``cols`` [nrows, width] (every stored entry), or None where the rows are
+    not whole blocks."""
+    nr = cols.shape[0]
+    if nr == 0 or nr % KISO_BLOCK:
+        return None
+    cb = cols.reshape(nr // KISO_BLOCK, -1)
+    return int((cb.max(dim=1).values - cb.min(dim=1).values).max())
+
+
+def device_ell(ell: EllMatrix, dtype, device, role: str, u16: bool = False) -> DeviceEll:
+    """The kernel's tables of host ``ell`` on ``device``: values in
+    ``dtype``, ``lens`` from them, and int32 columns; or, given ``u16`` (a
+    table no sweep reads), u16 offsets from a per-block base where every
+    128-row block spans at most ``U16_MAX_SPAN`` columns (the rule; int32
+    otherwise).  ``DeviceEll.col_format`` says which was taken."""
+    if role not in SPMV_ROLES and role != SPMV_PARENT:
         raise ValueError(f"unknown SpMV role {role!r}")
-    return DeviceEll(
-        vals=ell.vals.to(device=device, dtype=dtype).contiguous(),
-        cols=global_cols(ell).to(device=device, dtype=torch.int32).contiguous(),
-        ncols=ell.ncols,
-        role=role,
-    )
+    vals = ell.vals.to(dtype=dtype)
+    cols = global_cols(ell).to(torch.int32)
+    col_base = None
+    if u16 and role != SPMV_PARENT:
+        span = u16_span(cols)
+        if span is not None and span <= U16_MAX_SPAN:
+            cols, col_base = u16_offsets(cols)
+
+    def dev(t):
+        return None if t is None else t.to(device=device).contiguous()
+
+    return DeviceEll(vals=dev(vals), cols=dev(cols), ncols=ell.ncols, role=role,
+                     lens=dev(row_lens(vals)), col_base=dev(col_base))
+
+
+def rowwarp_ell(A: DeviceEll) -> DeviceEll:
+    """``A`` as the parent SpMV design's matrix (role "spmv_rowwarp",
+    int32 columns), for the A/B timing of ``chip_smoke.py``."""
+    if A.col_base is not None:
+        A = dataclasses.replace(A, cols=A.global_cols().to(torch.int32).contiguous(),
+                                col_base=None)
+    return dataclasses.replace(A, role=SPMV_PARENT)
 
 
 def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor):
-    """Plain version of ``ell_spmv``: gather and sum."""
+    """Plain version of the parent ``ell_spmv`` (every stored entry):
+    gather and sum."""
     return (vals * x[cols.long()]).sum(dim=1)
 
 
+def ell_spmv_lens_plain(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``ell_spmv``: row r sums entries ``[0, lens[r])``
+    only, through global columns (u16: base + offset)."""
+    if A.lens is None:
+        return ell_spmv_plain(A.vals, A.global_cols(), x)
+    w = int(A.lens.max()) if A.lens.numel() else 0
+    k = torch.arange(w, device=A.vals.device)
+    prod = A.vals[:, :w] * x[A.global_cols()[:, :w]]
+    return torch.where(k < A.lens[:, None], prod, 0).sum(dim=1)
+
+
 def ell_spmv(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
-    """y = A x, [nrows_pad]; the CUDA kernel for CUDA tensors."""
-    if A.role not in SPMV_ROLES:
+    """y = A x, [nrows_pad]; the CUDA kernel for CUDA tensors: ``ell_spmv_blk``
+    (each row to ``lens``, i32 or u16 columns) for a solve role, the parent
+    design for "spmv_rowwarp"."""
+    parent = A.role == SPMV_PARENT
+    if A.role not in SPMV_ROLES and not parent:
         raise ValueError(f"ell_spmv takes a solve SpMV role, not {A.role!r}")
     if x.device.type == "cpu" and A.vals.device.type == "cpu":
-        return ell_spmv_plain(A.vals, A.cols, x)
+        return ell_spmv_plain(A.vals, A.cols, x) if parent else ell_spmv_lens_plain(A, x)
     dev = A.vals.device
     if dev.type != "cuda" or A.vals.dtype not in _SUFFIX:
         raise ValueError(f"ell_spmv takes f32/f64 CUDA tensors, got "
                          f"{A.vals.dtype} on {dev}")
-    _check("cols", A.cols, dev, torch.int32, A.vals.shape)
-    _check("vals", A.vals, dev)
-    _check("x", x, dev, A.vals.dtype, (A.ncols,))
+    _check("x", x, dev, A.vals.dtype, (A.ncols,))  # the tables: __post_init__
+    u16 = A.col_base is not None
     y = torch.empty(A.nrows_pad, dtype=x.dtype, device=dev)
-    fn = getattr(_load(), f"mmp_ell_spmv_{_SUFFIX[x.dtype]}")
-    rc = _call(A.role, A.nrows_pad, A.ncols, fn, A.vals.data_ptr(), A.cols.data_ptr(),
-               A.width, A.nrows_pad, x.data_ptr(), y.data_ptr(),
-               torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if parent:
+        if u16:
+            raise ValueError("the parent SpMV design takes int32 columns (rowwarp_ell)")
+        fn = getattr(_load(), f"mmp_ell_spmv_{_SUFFIX[x.dtype]}")
+        rc = _call(A.role, A.nrows_pad, A.ncols, fn, A.vals.data_ptr(), A.cols.data_ptr(),
+                   A.width, A.nrows_pad, x.data_ptr(), y.data_ptr(), stream)
+    else:
+        if A.lens is None:
+            raise ValueError("ell_spmv needs the rows' lens (device_ell builds them)")
+        fn = getattr(_load(), f"mmp_ell_spmv_blk_{_SUFFIX[x.dtype]}")
+        rc = _call(A.role, A.nrows_pad, A.ncols, fn, A.vals.data_ptr(), A.cols.data_ptr(),
+                   A.col_base.data_ptr() if u16 else None, A.lens.data_ptr(), A.width,
+                   A.nrows_pad, x.data_ptr(), y.data_ptr(), int(u16), stream)
     _launch_ok(rc, "ell_spmv")
     COUNTS[A.role] += 1
     return y
@@ -666,8 +793,9 @@ class BlockSweep:
     phase_ptr: tuple
     serial: bool
     # "sweep5"/"sweep6"/"sweep7" (storage order), "sweep8" (colored),
-    # "sweep8_percolor" (colored, the parent design: timing only), or a
-    # PROBE_MODES role (``sweep_probe`` only)
+    # "sweep8_percolor" (colored) and "sweep6_chain" (storage order), the
+    # parent designs (timing only), or a PROBE_MODES role (``sweep_probe``
+    # only)
     role: str
     # role "sweep8": its blocks' x patches (``block_patch_tables``)
     patches: BlockPatches | None = None
@@ -717,20 +845,62 @@ def block_oneshot_sweep_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     return x
 
 
+# roles of csrc/storage_chain.cu: one CTA walks a storage-order phase
+CHAIN_ROLES = ("sweep5", "sweep6")
+# role -> (1 if the ELL rows were staged in shared memory else 0, shared
+# bytes) of its last launch: the kernel stages them where they fit
+CHAIN_INFO: dict[str, tuple] = {}
+
+
+def storage_chain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
+    """One storage-order sweep (role "sweep6" or "sweep5") on ``x``, in
+    place, one ``storage_chain`` launch a phase; returns ``x``.  CPU
+    tensors: ``block_oneshot_sweep_plain``."""
+    if sw.role not in CHAIN_ROLES or not sw.serial:
+        raise ValueError(f"storage_chain walks a storage-order sweep of roles "
+                         f"{CHAIN_ROLES}, not {sw.role!r} (serial={sw.serial})")
+    if x.device.type == "cpu" and sw.kT.device.type == "cpu":
+        return block_oneshot_sweep_plain(sw, x, x_lag, b)
+    dev, dt, kdt = _check_block_sweep(sw, x, b, "storage_chain")
+    if sw.A.lens is None:
+        raise ValueError("storage_chain needs the rows' lens (device_ell builds them)")
+    xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
+    _check("x_lag", xl, dev, dt, ())
+    for name, t in (("kT", sw.kT), ("vals", sw.A.vals), ("cols", sw.A.cols)):
+        if t.data_ptr() % 16:  # cp.async.bulk copies 16-byte-aligned tiles
+            raise ValueError(f"storage_chain: {name} is not 16-byte aligned")
+    n_pad = sw.A.nrows_pad
+    fn = getattr(_load(), f"mmp_storage_chain_{_SWEEP_SUFFIX[(dt, kdt)]}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    info = (ctypes.c_int * 2)()
+    for p in range(sw.nphases):
+        ids = sw.phase(p)
+        rc = _call(sw.role, ids.shape[0] * LANES, n_pad, fn, sw.A.vals.data_ptr(),
+                   sw.A.cols.data_ptr(), sw.A.lens.data_ptr(), sw.A.width, b.data_ptr(),
+                   sw.lagc.data_ptr(), xl.data_ptr(), sw.kT.data_ptr(), ids.data_ptr(),
+                   ids.shape[0], x.data_ptr(), stream, info)
+        _launch_ok(rc, "storage_chain")
+        COUNTS[sw.role] += 1
+    CHAIN_INFO[sw.role] = tuple(info)
+    return x
+
+
 def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     """One full sweep (every phase) on ``x``, in place; returns ``x``.
 
     Roles "sweep8" and "sweep7" launch the fused smoother (``block_smooth``)
-    once with one sweep and no relax or re-solve; "sweep5", "sweep6" (the
-    single-CTA chain) and "sweep8_percolor" (one launch per color, the
-    parent design of "sweep8") launch ``block_oneshot_sweep.cu`` once per
-    phase."""
+    once with one sweep and no relax or re-solve; "sweep6" and "sweep5"
+    the single-CTA ``storage_chain``; "sweep6_chain" (the parent design of
+    "sweep6") and "sweep8_percolor" (one launch per color, the parent design
+    of "sweep8") launch ``block_oneshot_sweep.cu`` once per phase."""
     if sw.role in PROBE_MODES:
         raise ValueError(f"role {sw.role!r} is a timing probe: sweep_probe runs it")
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         return block_oneshot_sweep_plain(sw, x, x_lag, b)
     if sw.role in FUSED_SWEEP_ROLES:
         return block_smooth(sw, x, x_lag, b, iters=1, inplace=True)[0]
+    if sw.role in CHAIN_ROLES:
+        return storage_chain(sw, x, x_lag, b)
     dev, dt, kdt = _check_block_sweep(sw, x, b, "block_oneshot_sweep")
     n_pad = sw.A.nrows_pad
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())

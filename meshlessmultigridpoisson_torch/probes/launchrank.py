@@ -6,7 +6,7 @@ Reads SolveRecords written by ``cli solve --device cuda --profile --out``
 (``extra.profile.launch_shapes``: launches and device ms per launch of
 each "role rows x cols", or "role rows x cols x sweeps" for a fused
 smoother launch, from torch.profiler; ``extra.per_level``: each level's
-one-sweep smoother and matvec bounds) and prints, per record, one JSON line per
+one-sweep smoother, matvec, transfer and re-solve bounds) and prints, per record, one JSON line per
 (role, level, part): the launches of the timed solve, the device ms per
 launch, the bound per launch where the record holds it, and the excess
 ``launches x (device ms per launch - bound per launch)``; then the roles
@@ -19,9 +19,11 @@ own: a colored sweep's launches, one per color, summed) or "rows"
 (``compact_rows``).  Bounds: a fused launch of ``iters`` sweeps takes
 ``iters`` times the level's one-sweep smoother bound (what ``iters``
 separate sweeps must move), a sweep launch its rows' share of it, a matvec
-the level's matvec bound;
-transfers and ``compact_rows`` have none in the record (bound 0: the
-excess is then their device time).  Reads no card.
+the level's matvec bound, a transfer the bound of the restriction or
+prolongation into its level (``restrict_bound_ms`` / ``prolong_bound_ms``)
+and a ``compact_rows`` re-solve its level's ``resolve_bound_ms``.  A record
+written before those keys existed charges transfers and ``compact_rows``
+0 (the excess is then their device time).  Reads no card.
 """
 
 from __future__ import annotations
@@ -47,11 +49,14 @@ def rank(rec: dict) -> tuple[list[dict], list[tuple[str, float]]]:
             lv, part = level[c], ("sweep" if sweeps is None else "smooth")
             bound = per_level[lv]["sweep_bound_ms"] * r / c * (sweeps or 1)
         elif role in ("bound2", "push2", "ppe2"):
-            lv, part, bound = level.get(c), "rows", 0.0
+            lv, part = level.get(c), "rows"
+            bound = (per_level[lv].get("resolve_bound_ms", 0.0)
+                     if role == "bound2" and lv is not None else 0.0)
         else:  # an SpMV: its output rows name the level
             lv = level.get(r)
             part = "matvec" if r == c else ("restrict" if r < c else "prolong")
-            bound = per_level[lv]["matvec_bound_ms"] if part == "matvec" else 0.0
+            key = "matvec_bound_ms" if part == "matvec" else f"{part}_bound_ms"
+            bound = per_level[lv].get(key, 0.0) if lv is not None else 0.0
         g = groups.setdefault((role, lv, part), [0, 0.0, 0.0])
         g[0] += s["launches"]
         g[1] += s["device_ms"]

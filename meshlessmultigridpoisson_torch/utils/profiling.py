@@ -111,8 +111,11 @@ def _nnz(t: torch.Tensor) -> int:
 
 def spmv_bytes(A) -> int:
     """Bytes ``ell_spmv`` needs (``A`` a DeviceEll): each nonzero's value
-    and int32 column, x read once, y written once."""
+    and column (4 B int32; 2 B in the u16 format, which adds its 4 B base
+    column a 128-row block), x read once, y written once."""
     es = A.vals.element_size()
+    if A.col_base is not None:
+        return _nnz(A.vals) * (es + 2) + 4 * A.col_base.numel() + (A.ncols + A.nrows_pad) * es
     return _nnz(A.vals) * (es + 4) + (A.ncols + A.nrows_pad) * es
 
 
@@ -355,7 +358,13 @@ def profile_hierarchy(hier, reps: int = 5, k: int = 16) -> list[dict[str, Any]]:
     Returns one dict per level (coarse -> fine): n, the sweep kind, nnz,
     per-op ms (``smooth`` with one sweep, its relax and re-solve, and
     ``matvec`` of the smoother protocol), Gnnz/s, modelled GB/s, and each
-    op's kernel bound with what bounds it, the card's name and power limit.
+    op's kernel bound with what bounds it, the card's name and power limit;
+    then the bounds of one launch of the transfers into the level
+    (``restrict_bound_ms``: the restriction from the next finer level, on
+    every level but the finest; ``prolong_bound_ms``: the prolongation from
+    the next coarser, on every level but the coarsest; ``spmv_bytes`` over
+    their tables) and of its boundary re-solve (``resolve_bound_ms``, 0
+    without boundary rows), each 0 where the level has none.
     """
     from meshlessmultigridpoisson_torch.ops import smoothers as sm
 
@@ -380,6 +389,15 @@ def profile_hierarchy(hier, reps: int = 5, k: int = 16) -> list[dict[str, Any]]:
         mv_bound, mv_by = bound_ms(mv_b, spmv_flops(lv.A), dt, info["name"])
         sw_bound, sw_by = bound_ms(sw_b, smooth_flops(lv.sweep, 1, *level_smooth_args(lv)),
                                    dt, info["name"])
+        def spmv_bound(A):
+            return bound_ms(spmv_bytes(A), spmv_flops(A), A.vals.dtype, info["name"])[0]
+
+        nlev = len(hier.levels)
+        restrict_b = spmv_bound(hier.restrict[li]) if li + 1 < nlev else 0.0
+        prolong_b = spmv_bound(hier.prolong[li - 1]) if li > 0 else 0.0
+        resolve_b = (bound_ms(compact_bytes(lv.bound), compact_flops(lv.bound)
+                              + RESOLVE_FLOPS * lv.bound.nrows, dt, info["name"])[0]
+                     if lv.bound.nrows else 0.0)
         out.append(dict(
             level=li,
             n=int(lv.row_map.numel()),
@@ -395,6 +413,9 @@ def profile_hierarchy(hier, reps: int = 5, k: int = 16) -> list[dict[str, Any]]:
             matvec_bound_by=mv_by,
             sweep_bound_ms=sw_bound,
             sweep_bound_by=sw_by,
+            restrict_bound_ms=restrict_b,
+            prolong_bound_ms=prolong_b,
+            resolve_bound_ms=resolve_b,
             card=info["name"],
             power_limit=info["power_limit"],
         ))

@@ -50,9 +50,15 @@ pytestmark = [
 
 @pytest.fixture(scope="module")
 def et():
+    return _knn_ell(28)
+
+
+def _knn_ell(k):
+    """ELL of a k-nearest-neighbour operator with a heavy diagonal on a
+    jittered 36 x 36 grid in kd-tile order (1,296 rows, width k)."""
     from scipy.spatial import cKDTree
 
-    n_side, k = 36, 28
+    n_side = 36
     rng = np.random.default_rng(3)
     xy = np.stack(
         np.meshgrid(np.arange(n_side), np.arange(n_side), indexing="ij"), -1
@@ -712,8 +718,9 @@ def test_kiso_roles_count_and_match_plain(et, role):
         assert torch.equal(pad, want)
     y = gk.kiso_spmv(A, x)
     assert y.shape == (et.nrows_pad,)
-    if role in ("kiso7_affine", "kiso8_vpu"):  # the production instance
-        assert torch.equal(y, gk.ell_spmv(gk.device_ell(et, torch.float32, "cuda", "spmv6"), x))
+    if role in ("kiso7_affine", "kiso8_vpu"):  # the parent production instance
+        A0 = gk.rowwarp_ell(gk.device_ell(et, torch.float32, "cuda", "spmv6"))
+        assert torch.equal(y, gk.ell_spmv(A0, x))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
@@ -745,3 +752,93 @@ def test_kiso_probes_on_card():
     assert res[0]["padded_blocks"] == 0 and res[0]["max_block_span"] <= gk.U16_MAX_SPAN
     for r in [row for p in res for row in p["kernels"].values()]:
         assert 0 < r["bound_ms"] <= 1.05 * r["ms"]
+
+
+def _ragged(et, seed=31):
+    """``et`` with rows of mixed lengths, as condensation leaves a Neumann
+    level: every third row keeps a random prefix of its entries (the rest
+    zero, trailing), and one interior weight of row 1 is exactly zero."""
+    vals = et.vals.clone()
+    rng = np.random.default_rng(seed)
+    for r in range(0, et.nrows, 3):
+        vals[r, int(rng.integers(1, et.width)):] = 0.0
+    vals[1, 1] = 0.0
+    return dataclasses.replace(et, vals=vals)
+
+
+# rows of a table -> rows a warp the launcher gives it: 16 (a CTA a
+# 128-row block) from 264 such CTAs (33,792 rows), else 8, 4, 2, 1
+SPMV_TABLES = {"fixture": 1, "6k": 2, "16k": 4, "24k": 8, "36k": 16}
+
+
+@pytest.mark.parametrize("table", list(SPMV_TABLES))
+@pytest.mark.parametrize("u16", [False, True], ids=["i32", "u16"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_ell_spmv_reads_to_lens_and_matches_plain_and_parent(et, dtype, tol, u16, table):
+    """The redesigned ``ell_spmv`` (each row read to ``lens``, i32 or u16
+    columns) against its plain version, the every-entry plain gather and
+    the parent design (``spmv_rowwarp``); one launch of each counted under
+    its role.  The tables run every mapping of the launcher: the fixture
+    (1,408 rows) one row a warp, the kiso probe's operator at 6,144 /
+    16,384 / 24,576 / 36,864 rows two, four, eight and sixteen (a CTA a
+    128-row block, as every table of 33,792 rows or more)."""
+    if table != "fixture":
+        from meshlessmultigridpoisson_torch.probes import kiso
+
+        et = kiso.build_operator(n=int(table[:-1]) * 1024)
+    n = et.nrows_pad
+    rpw = next(r for r in (16, 8, 4, 2) if -(-n // (8 * r)) >= 264) if n >= 4224 else 1
+    assert rpw == SPMV_TABLES[table]
+    ell = _ragged(et)
+    A = gk.device_ell(ell, dtype, "cuda", "spmv6", u16=u16)
+    assert A.col_format == ("u16" if u16 else "i32")
+    assert int(A.lens[1]) == int(gk.row_lens(et.vals[1:2].to(dtype))[0]) > 2
+    x = _rand(A.ncols, dtype, 32)
+    before = dict(gk.COUNTS)
+    y = gk.ell_spmv(A, x)
+    yr = gk.ell_spmv(gk.rowwarp_ell(A), x)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        "spmv6": 1, "spmv_rowwarp": 1}
+    yp = gk.ell_spmv_lens_plain(A, x)
+    scale = float(yp.abs().max())
+    for other in (yp, gk.ell_spmv_plain(A.vals, A.global_cols(), x), yr):
+        assert float((y - other).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("width", [28, 72])
+@pytest.mark.parametrize("dtype,kdt,tol", FUSED_CASES, ids=["f32", "f64", "bf16k"])
+def test_storage_chain_matches_plain_and_parent(et, dtype, kdt, tol, width):
+    """The redesigned storage-order chain (``sweep6``: K staged ahead, ELL
+    rows prefetched, each row read to ``lens``) on rows of mixed lengths
+    against its plain version and the parent chain (``sweep6_chain``), one
+    launch each; the ELL tile staged in shared memory where it fits beside
+    the K tile (``CHAIN_INFO``): at 28 entries a row in every dtype, at 72
+    in f32 and bf16 K but not beside f64's 128 KB K tile."""
+    ell = _ragged(et if width == 28 else _knn_ell(width), seed=33)
+    sw = _sweep(ell, dtype, True, "sweep6", k_dtype=kdt)
+    parent = dataclasses.replace(sw, role="sweep6_chain")
+    n = ell.nrows_pad
+    x, b = _rand(n, dtype, 34), _rand(n, dtype, 35)
+    xl = torch.tensor(0.3, dtype=dtype, device="cuda")
+    before = dict(gk.COUNTS)
+    out = gk.block_oneshot_sweep(sw, x.clone(), xl, b)
+    par = gk.block_oneshot_sweep(parent, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        "sweep6": 1, "sweep6_chain": 1}
+    # shared bytes: mbarriers, the K tile, t and the partial sums, and the
+    # ELL tile (values and columns, each 128-byte aligned) where it fits
+    vs = torch.empty(0, dtype=dtype).element_size()
+    ks = torch.empty(0, dtype=kdt or dtype).element_size()
+    base = 128 + 128 * 128 * ks + 128 * vs + 512 * vs
+    ell_tile = sum(-(-128 * ell.width * e // 128) * 128 for e in (vs, 4))
+    fits = base + ell_tile <= gk.SMEM_OPTIN
+    assert fits == (width == 28 or dtype != torch.float64)
+    assert gk.CHAIN_INFO["sweep6"] == ((1, base + ell_tile) if fits else (0, base))
+    ref = gk.block_oneshot_sweep_plain(sw, x.clone(), xl, b)
+    scale = float((ref - x).abs().max() if kdt is not None else ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol * scale
+    assert float((out - par).abs().max()) <= tol * scale
+    again = gk.block_oneshot_sweep(sw, x.clone(), xl, b)
+    assert torch.equal(again, out)  # one CTA, a fixed order: the same bits

@@ -111,3 +111,24 @@ def test_smooth_bytes_and_flops_add_the_relax_and_resolve():
     per = 2 * nnz_a + 2 * nnz_k + (2 * n + 4) + (2 * m * 4 + 4 * m)
     assert pf.smooth_flops(sw, 5, lag, bound) == 5 * per
     assert pf.smooth_flops(sw, 1) == pf.sweep_flops(sw)
+
+
+def test_launchrank_subtracts_the_transfer_and_resolve_bounds():
+    """A record whose levels carry the bounds of the transfers into them
+    and of their re-solve (``profile_hierarchy``'s ``restrict_bound_ms``,
+    ``prolong_bound_ms``, ``resolve_bound_ms``): a transfer's and a
+    ``bound2`` launch's excess is their device time less that bound."""
+    rec = _record()
+    rec["extra"]["per_level"][0]["restrict_bound_ms"] = 0.001
+    rec["extra"]["per_level"][1]["prolong_bound_ms"] = 0.002
+    rec["extra"]["per_level"][1]["resolve_bound_ms"] = 0.0005
+    rows, _ = launchrank.rank(rec)
+    by = {(r["role"], r["level"], r["part"]): r for r in rows}
+    restrict = by[("spmv6", 0, "restrict")]
+    assert restrict["bound_ms_per_launch"] == pytest.approx(0.001)
+    assert restrict["excess_ms"] == pytest.approx(4 * (0.005 - 0.001))
+    prolong = by[("spmv6", 1, "prolong")]
+    assert prolong["excess_ms"] == pytest.approx(4 * (0.006 - 0.002))
+    assert by[("bound2", 1, "rows")]["excess_ms"] == pytest.approx(8 * (0.002 - 0.0005))
+    # the matvec keeps its own bound
+    assert by[("spmv8", 1, "matvec")]["excess_ms"] == pytest.approx(5 * (0.01 - 0.004))
