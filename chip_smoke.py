@@ -42,12 +42,16 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    launches (per-color sweeps or the ``sweep6`` chain, torch relax,
    ``compact_rows``) in turns loop, fused, fused, loop;
    ``stream_ceiling`` at the bench's shape against its plain reduction;
-   ``class_sor_sweep`` (f32 and f64, the v2-fallback smoother) and
-   ``ell_spmv`` in its ``spmv2`` role on the Dirichlet fine level;
+   ``class_sor_sweep`` (f32 and f64, the v2-fallback smoother) on every
+   Dirichlet level (L0-L3) and ``ell_spmv`` in its ``spmv2`` role on the
+   fine one, the class sweep also against its parent design
+   (``sweep2_tilewalk``: frozen rows untouched, one launch each) and one
+   sweep timed in turns parent, kernel, kernel, parent;
    on the Neumann hierarchy ``compact_rows`` (f32 and f64) on the fine
    level's boundary table (re-solve) and condensation table (pushdown),
    ``class_sor_sweep`` (f32, f64) on the fine level (frozen rows,
-   Lagrange column, x_lag 0.3), ``ell_spmv`` (f32, f64) on the fine
+   Lagrange column, x_lag 0.3; its parent design beside it as on the
+   Dirichlet levels), ``ell_spmv`` (f32, f64) on the fine
    level's matvec and the Neumann f64 outer operator (as the Dirichlet
    ones), the chain on the fine level in storage order (rows of mixed
    lengths; f32, bf16 K, f64, as on the Dirichlet level), and the fused
@@ -65,7 +69,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    too (``utils.profiling.device_ms``) and printed beside them;
 3. run the port's ``solve`` entry point in-process (one untimed outer pass,
    then the timed solve; launch counters set to 0 before each run and read
-   after it), print each SolveRecord, and check: Dirichlet, then on the
+   after it, printed as "warm-up + timed" beside the timed solve's own,
+   the record's ``extra.launches``, from which the V-cycle and re-solve
+   checks below are made), print each SolveRecord, and check: Dirichlet, then on the
    same host problem (repacked, not rebuilt) ``--sweep-order exact``,
    ``--fast-k`` and the v2-fallback solve (``run_solve(...,
    use_v6=False)``, the reference's ``tpu_hierarchy(use_v6=False)``), then
@@ -93,7 +99,10 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ``sweep6`` sweep on the parent chain (``sweep6_chain``; the run fails
    unless it launched ``sweep6_chain`` and no ``sweep6``), then on
    ``storage_chain`` again, and the three times are printed (each
-   residual < 1e-8).  After the exact and v2
+   residual < 1e-8); the v2 path's timed solve the same way with every
+   ``sweep2`` sweep on the parent class sweep (``sweep2_tilewalk``; the
+   run fails unless it launched ``sweep2_tilewalk`` and no ``sweep2``).
+   After the exact and v2
    paths' counts are read, each runs once more with ``--profile``, its
    per-level table (bounds of the matvec, smoother, transfers and re-solve)
    is printed, each time at or above its bound, and
@@ -139,8 +148,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ktime``) in-process on its real 1,048,576-row pattern with 5 iterations
    (counts set to 0 before, read after; the probe holds every kernel
    against its plain version before timing it): ``spmv2`` and ``sweep2``
-   at 128- and 256-row blocks, ``spmv4``, ``sweep4`` and ``sweep5``, each
-   launched, each at or above its bound;
+   at 128- and 256-row blocks (``sweep2`` also against its parent design,
+   ``sweep2_tilewalk``, in turns), ``spmv4``, ``sweep4`` and ``sweep5``,
+   each launched, each at or above its bound;
 8. the stream probes and the SpMV's gather/reduction split, each
    in-process at the reference's sizes with its counts set to 0 before and
    read after: ``probes.kstream`` (the four table mixes over [2^18, 128]
@@ -220,6 +230,9 @@ ROLES = {
                  "bench.py:118"),
     "sweep2": ("class_sor_sweep", "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels.py:586"),
+    "sweep2_tilewalk": ("class_sor_sweep (parent design)",
+                        "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
+                        "meshlessmultigridpoisson_tpu/ops/kernels.py:586"),
     "sweep4": ("class_sor_sweep", "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels4.py:464"),
     "spmv2": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
@@ -649,29 +662,55 @@ def main(argv=None) -> int:
                pf.sweep_bytes(sw), pf.sweep_flops(sw), dtype)
 
     def check_class_sweep(label, sw, x_lag):
-        """Kernel vs plain, one launch counted, frozen rows untouched."""
+        """The window class sweep and its parent design (``sweep2_tilewalk``)
+        against the plain version on the same inputs, each one launch
+        counted, frozen rows untouched; then one sweep timed in turns
+        parent, kernel, kernel, parent (single launches of 0.2-35 ms: the
+        chain time is the device time); both rows recorded, the parent's
+        under its own role."""
         dtype = sw.A.vals.dtype
         n = sw.A.nrows_pad
+        tiles = n // sw.class_size
         x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
         b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
         xl = torch.tensor(x_lag, dtype=dtype, device=dev)
-        before = gk.COUNTS[sw.role]
-        xk = gk.class_sor_sweep(sw, x0.clone(), xl, b)
-        torch.cuda.synchronize()
-        if gk.COUNTS[sw.role] != before + 1:
-            raise AssertionError(f"class_sor_sweep {label}: no launch counted")
-        xp = gk.class_sor_sweep_plain(sw, x0.clone(), xl, b)
+        par = dataclasses.replace(sw, role=gk.CLASS_PARENT)
         frozen = sw.mask == 0
-        if not torch.equal(xk[frozen], x0[frozen]):
-            raise AssertionError(f"class_sor_sweep {label}: a frozen row moved")
-        xs = x0.clone()
-        ms = ms_of(lambda v: gk.class_sor_sweep(sw, v, xl, b), xs, 5)
-        pms = ms_of(lambda v: gk.class_sor_sweep_plain(sw, v, xl, b), xs, 1)
+        out = {}
+        for s_ in (sw, par):
+            before = gk.COUNTS[s_.role]
+            out[s_.role] = gk.class_sor_sweep(s_, x0.clone(), xl, b)
+            torch.cuda.synchronize()
+            if gk.COUNTS[s_.role] != before + 1:
+                raise AssertionError(f"class_sor_sweep {label} ({s_.role}): not one launch")
+            if not torch.equal(out[s_.role][frozen], x0[frozen]):
+                raise AssertionError(f"class_sor_sweep {label} ({s_.role}): a frozen row moved")
+        plan = gk.CLASS_INFO[sw.role]
+        t0 = time.perf_counter()
+        xp = gk.class_sor_sweep_plain(sw, x0.clone(), xl, b)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        k = 3 if tiles > 10_000 else 10
+        t = [ms_of(lambda v, s_=s_: gk.class_sor_sweep(s_, v, xl, b), x0.clone(), k)
+             for s_ in (par, sw, sw, par)]
+        tk, tp = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
         dt = dname(dtype)
-        record(sw.role, f"class_sor_sweep {dt} {label} ({n // sw.class_size} tiles, "
-               f"x_lag {x_lag})", ("sweep", dt), float((xk - xp).abs().max()),
-               float(xp.abs().max()), ms, pms, pf.sweep_bytes(sw), pf.sweep_flops(sw),
-               dtype)
+        print(f"  A/B class sweep {dt} {label} ({tiles} tiles of {sw.class_size}, width "
+              f"{sw.A.width}, window {sw.window}, mean seg {float(sw.seg.float().mean()):.1f} "
+              f"of mean lens {float(sw.A.lens.float().mean()):.1f}; ring slots, shared bytes, "
+              f"tiles a slot {plan}): ms parent {t[0]:.4f} / kernel {t[1]:.4f} / kernel "
+              f"{t[2]:.4f} / parent {t[3]:.4f}; a link {1e3 * tk / tiles:.3f} us (parent "
+              f"{1e3 * tp / tiles:.3f}) ({card})", flush=True)
+        nbytes, flops = pf.sweep_bytes(sw), pf.sweep_flops(sw)
+        scale = float(xp.abs().max())
+        common = f"{dt} {label} ({tiles} tiles, x_lag {x_lag}), one sweep"
+        record(sw.role, f"class_sor_sweep {common}", ("sweep", dt),
+               float((out[sw.role] - xp).abs().max()), scale, tk, pms, nbytes, flops, dtype,
+               extra=dict(parent_ms=tp, chain_ab_ms=t, staging=plan,
+                          link_us=1e3 * tk / tiles))
+        record(par.role, f"class_sor_sweep parent design {common}", ("sweep", dt),
+               float((out[par.role] - xp).abs().max()), scale, tp, pms, nbytes, flops, dtype,
+               extra=dict(link_us=1e3 * tp / tiles))
 
     def check_smooth(label, sw, lag_row=None, bound=None, omega=1.4,
                      iters=SMOOTH_ITERS):
@@ -778,11 +817,12 @@ def main(argv=None) -> int:
         check_level_smooth(name, lv)
         if lv.sweep.A.vals.dtype == torch.float32:
             check_level_smooth(name, dataclasses.replace(lv, sweep=bf16k(lv.sweep)))
-    for dt in (torch.float32, torch.float64):  # the v2-fallback fine level
-        v2 = gpu_level_from_operator(hier.levels[-1], dev, dt, use_v6=False)
-        if dt == torch.float32:
-            check_spmv(v2.A.role, "fine matvec (v2 level)", v2.A)
-        check_class_sweep("fine, Dirichlet", v2.sweep, 0.0)
+    for dt in (torch.float32, torch.float64):  # the v2-fallback levels
+        for i, op in enumerate(hier.levels):
+            v2 = gpu_level_from_operator(op, dev, dt, use_v6=False)
+            if dt == torch.float32 and i == nl - 1:
+                check_spmv(v2.A.role, "fine matvec (v2 level)", v2.A)
+            check_class_sweep(f"Dirichlet L{i}", v2.sweep, 0.0)
     del g32, coarse64, fine64, hier, prob, v2, outer64
     torch.cuda.empty_cache()
 
@@ -877,7 +917,7 @@ def main(argv=None) -> int:
                       gk.device_compact(fine.bound, dt, dev, "bound2"))
         check_compact("fine condensation pushdown",
                       gk.device_compact(fine.cond, dt, dev, "push2"))
-        check_class_sweep("fine, Neumann", gpu_level_from_operator(
+        check_class_sweep("Neumann fine", gpu_level_from_operator(
             fine, dev, dt, use_v6=False).sweep, 0.3)
         for name, op in (("Neumann fine", fine), ("Neumann coarsest", prob.hierarchy.levels[0])):
             lv = gpu_level_from_operator(op, dev, dt)
@@ -926,8 +966,13 @@ def main(argv=None) -> int:
         rec, prob, x, xl = cli.run_solve(argv, problem=prob, use_v6=use_v6)
         torch.cuda.synchronize()
         launches[path] = dict(gk.COUNTS)
+        # the timed solve's own counts (the run above also holds the
+        # untimed warm-up pass): the V-cycle and re-solve checks read these
+        timed = rec.extra["launches"]
         print(rec.to_json(), flush=True)
-        print(f"launches during the {path} main path: {launches[path]}", flush=True)
+        print(f"launches during the {path} main path (warm-up + timed): {launches[path]}",
+              flush=True)
+        print(f"launches of the {path} timed solve: {timed}", flush=True)
 
         kinds = rec.extra["level_kernels"]
         if full and kinds != expect:
@@ -940,13 +985,13 @@ def main(argv=None) -> int:
         if busy:
             return fail(f"{path}: roles off this path launched: {busy}")
         if path != "v2":
-            v = vcycles(kinds, launches[path])
-            print(f"{path}: {v} V-cycles; launches a V-cycle: "
-                  + ", ".join(f"{r} {launches[path][r] / v:g}" for r in
+            v = vcycles(kinds, timed)
+            print(f"{path}: {v} V-cycles in the timed solve; launches a V-cycle: "
+                  + ", ".join(f"{r} {timed[r] / v:g}" for r in
                               ("sweep8", "sweep7", "sweep6", "bound2", "spmv8", "spmv6")),
                   flush=True)
-            if not launches[path]["bound2"] <= BOUND2_PER_VCYCLE * v:
-                return fail(f"{path}: {launches[path]['bound2']} bound2 launches in {v} "
+            if not timed["bound2"] <= BOUND2_PER_VCYCLE * v:
+                return fail(f"{path}: {timed['bound2']} bound2 launches in {v} "
                             "V-cycles: the smoother's re-solves are not all fused")
         want_k = {"fast-k": "torch.bfloat16", "v2": None}.get(path, "torch.float32")
         if any(d != want_k for d in rec.extra["level_k_dtypes"]):
@@ -1010,6 +1055,35 @@ def main(argv=None) -> int:
                   f"sweep6 one in the parent's run) ({card})", flush=True)
             if not (rp.final_residual < 1e-8 and rn.final_residual < 1e-8):
                 return fail(f"exact A/B: residuals {rp.final_residual:.3e}, "
+                            f"{rn.final_residual:.3e} >= 1e-8")
+            del rp, rn
+        if path == "v2":  # the timed solve with every sweep2 on the parent design
+            orig = gk.class_sor_sweep
+
+            def parent_class(sw, x_, x_lag, b_):
+                return orig(dataclasses.replace(sw, role=gk.CLASS_PARENT), x_, x_lag, b_)
+
+            before = dict(gk.COUNTS)
+            try:
+                gk.class_sor_sweep = parent_class
+                rp, *_ = cli.run_solve(argv, problem=prob, use_v6=False)
+                torch.cuda.synchronize()
+            finally:
+                gk.class_sor_sweep = orig
+            made = {k: gk.COUNTS[k] - before[k] for k in before}
+            if made[gk.CLASS_PARENT] == 0 or made["sweep2"] != 0:
+                return fail(f"v2 A/B: the parent run launched {made[gk.CLASS_PARENT]} "
+                            f"{gk.CLASS_PARENT} and {made['sweep2']} sweep2: it did not run "
+                            "on the parent design")
+            rn, *_ = cli.run_solve(argv, problem=prob, use_v6=False)
+            torch.cuda.synchronize()
+            walls = [rec.wall_time_s, rp.wall_time_s, rn.wall_time_s]
+            print(f"v2: timed solve, class_sor_sweep {walls[0]:.4f} s / {gk.CLASS_PARENT} "
+                  f"{walls[1]:.4f} s / class_sor_sweep {walls[2]:.4f} s (passes {rec.cycles} / "
+                  f"{rp.cycles} / {rn.cycles}; the parent run: {made[gk.CLASS_PARENT]} "
+                  f"{gk.CLASS_PARENT} launches and no sweep2 one) ({card})", flush=True)
+            if not (rp.final_residual < 1e-8 and rn.final_residual < 1e-8):
+                return fail(f"v2 A/B: residuals {rp.final_residual:.3e}, "
                             f"{rn.final_residual:.3e} >= 1e-8")
             del rp, rn
         if path in ("exact", "v2"):  # the per-level profile, after the counts are read

@@ -217,6 +217,7 @@ def gpu_level_from_operator(
     if sweep and v2:
         sw = class_sweep(A, op.A.diag, op.smooth_mask, op.omega * op.omega_scale,
                          op.lag_col, class_size=op.class_size, role="sweep2")
+        A = sw.A  # its rows reordered for the sweep's windows: one copy
         kind = "v2-fallback"
     elif sweep:
         kT = build_oneshot_K(

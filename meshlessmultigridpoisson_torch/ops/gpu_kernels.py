@@ -46,7 +46,12 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``stream_ceiling`` (``stream14``)  bench.py:118 ``stream_ceiling``: the
                                    kernel bench's device-memory stream probe
 ``class_sor_sweep`` (``sweep2``)   ops/kernels.py:586 ``sor_sweep_tpu2``: the
-                                   v2-fallback level smoother (no K)
+                                   v2-fallback level smoother (no K); one
+                                   CTA, a chain warp on shared memory,
+                                   the bulk terms a window ahead
+``class_sor_sweep``                the parent design of the class-sweep
+(``sweep2_tilewalk``)              roles (one warp a row, every load on
+                                   the chain; timing only)
 ``class_sor_sweep`` (``sweep4``)   ops/kernels4.py:464 ``sor_sweep_tpu4``:
                                    the same class sweep (``probes.ktime``)
 ``ell_spmv`` (``spmv2``)           ops/kernels.py:510 ``spmv_tpu2``: the
@@ -165,6 +170,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "sweep8_percolor": 0, "spmv_rowwarp": 0, "sweep6_chain": 0,
           "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0, "sweep2": 0,
+          "sweep2_tilewalk": 0,
           "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0, "spmv1": 0,
           "spmv3": 0, "sweep1": 0, "probe_base": 0, "probe_hoist": 0,
           "probe_nodot": 0, "probe_nogather": 0, "kstream_f32i32": 0,
@@ -297,6 +303,11 @@ def _load():
             lib.mmp_sweep_probe_f32.restype = i
             lib.mmp_sweep_probe_f32.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
             for name in ("mmp_class_sweep_f32", "mmp_class_sweep_f64"):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p,
+                               ctypes.POINTER(i)]
+            for name in ("mmp_class_tilewalk_f32", "mmp_class_tilewalk_f64"):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, p]
@@ -1202,6 +1213,14 @@ def sweep_probe(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 CLASS_SWEEP_ROLES = ("sweep2", "sweep4", "sweep1")
+CLASS_PARENT = "sweep2_tilewalk"  # the parent class-sweep design: timing only
+# rows a window of the class sweep (whole tiles): its chain reads the
+# previous window and its own earlier tiles from shared memory; every other
+# term is summed one window ahead, off the chain
+CLASS_WINDOW = 128
+CLASS_MAX_SIZE = 32  # the kernel's largest tile (32 chain lanes)
+# role -> (ring slots, shared bytes, tiles a slot) of its last launch
+CLASS_INFO: dict[str, tuple] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1209,7 +1228,9 @@ class ClassSweep:
     """Tables of one level's class SOR sweep (no K): tiles of
     ``class_size`` rows walked in storage order, each tile's rows gathering
     from the same x.  Row vectors are ``[n_pad]``; padding rows carry
-    diag 1 and mask 0, so they never move."""
+    diag 1 and mask 0, so they never move.  ``A``'s rows are reordered for
+    the sweep's windows (``class_window_tables``): each row's first ``seg``
+    entries are its chain entries."""
 
     A: DeviceEll  # the level's square matrix
     diag: torch.Tensor
@@ -1217,21 +1238,67 @@ class ClassSweep:
     omega: torch.Tensor  # per-row omega (omega * omega_scale)
     lagc: torch.Tensor  # Lagrange column
     class_size: int
-    # "sweep2" (v2-fallback levels), "sweep4" (probes.ktime) or "sweep1"
-    # (probes.kexp)
+    # "sweep2" (v2-fallback levels), "sweep4" (probes.ktime), "sweep1"
+    # (probes.kexp) or "sweep2_tilewalk" (the parent design, timing only)
     role: str
+    seg: torch.Tensor  # [n_pad] int16: each row's chain entries
+
+    @property
+    def window(self) -> int:
+        return class_window(self.class_size)
+
+    @property
+    def xring(self) -> int:
+        """The kernel's shared x ring: a power of two >= 3 windows."""
+        return 1 << (3 * self.window - 1).bit_length()
+
+
+def class_window(class_size: int) -> int:
+    """Rows a window: the most whole tiles in ``CLASS_WINDOW`` rows."""
+    return max(CLASS_WINDOW // class_size, 1) * class_size
+
+
+def class_window_tables(A: DeviceEll, class_size: int) -> tuple:
+    """(``A`` with each row's nonzero prefix reordered, seg): for row i of
+    window w0 = i // R * R (R = ``class_window(class_size)``), its chain
+    entries (columns in [w0 - R, its tile's first row)) first, in their
+    order, then its other entries; seg[i] (int16) counts the first.  The
+    same operator in the same memory footprint (the old tables are
+    dropped); ``lens`` from the new order."""
+    if A.col_base is not None:
+        raise ValueError("the class sweep takes int32 columns")
+    window = class_window(class_size)
+    n, w = A.nrows_pad, A.width
+    dev = A.vals.device
+    rows = torch.arange(n, device=dev)
+    lo = (rows // window - 1) * window
+    hi = rows // class_size * class_size
+    lens = row_lens(A.vals) if A.lens is None else A.lens
+    live = torch.arange(w, device=dev)[None, :] < lens[:, None]
+    cols = A.cols.long()
+    chain = live & (cols >= lo[:, None]) & (cols < hi[:, None])
+    key = torch.where(chain, 0, torch.where(live, 1, 2)).to(torch.int8)
+    order = torch.sort(key, dim=1, stable=True).indices
+    del key, cols, live
+    vals = A.vals.gather(1, order).contiguous()
+    A2 = dataclasses.replace(A, vals=vals, cols=A.cols.gather(1, order).contiguous(),
+                             lens=row_lens(vals))
+    return A2, chain.sum(dim=1).to(torch.int16)
 
 
 def class_sweep(A: DeviceEll, diag, mask, omega, lagc, class_size: int = 8,
                 role: str = "sweep2") -> ClassSweep:
     """Tables from host vectors of length <= ``n_pad`` (the rest is padding:
-    diag 1, mask 0, omega 1, lag_col 0) in ``A``'s dtype and device."""
-    if role not in CLASS_SWEEP_ROLES:
+    diag 1, mask 0, omega 1, lag_col 0) in ``A``'s dtype and device, and
+    ``A`` reordered for the sweep's windows: callers that keep the matrix
+    use the sweep's ``A``, one copy of it."""
+    if role not in CLASS_SWEEP_ROLES + (CLASS_PARENT,):
         raise ValueError(f"unknown class-sweep role {role!r}")
     n_pad = A.nrows_pad
     if A.ncols != n_pad or n_pad % class_size:
         raise ValueError(f"class sweep needs a square operator of whole tiles: "
                          f"{n_pad} x {A.ncols}, class size {class_size}")
+    A, seg = class_window_tables(A, class_size)
 
     def rows(v, fill):
         out = torch.full((n_pad,), fill, dtype=torch.float64)
@@ -1241,7 +1308,7 @@ def class_sweep(A: DeviceEll, diag, mask, omega, lagc, class_size: int = 8,
 
     return ClassSweep(A=A, diag=rows(diag, 1.0), mask=rows(mask, 0.0),
                       omega=rows(omega, 1.0), lagc=rows(lagc, 0.0),
-                      class_size=int(class_size), role=role)
+                      class_size=int(class_size), role=role, seg=seg)
 
 
 def class_sor_sweep_plain(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
@@ -1267,12 +1334,17 @@ def class_sor_sweep_plain(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
 
 
 def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
-    """One full class SOR sweep on ``x``, in place; returns ``x``."""
+    """One full class SOR sweep on ``x``, in place; returns ``x``: one
+    launch of the window kernel, or of the parent design for role
+    "sweep2_tilewalk".  CPU tensors: ``class_sor_sweep_plain``."""
     if x.device.type == "cpu" and sw.A.vals.device.type == "cpu":
         return class_sor_sweep_plain(sw, x, x_lag, b)
     dev, dt = sw.A.vals.device, sw.A.vals.dtype
     if dev.type != "cuda" or dt not in _SUFFIX:
         raise ValueError(f"class_sor_sweep takes f32/f64 CUDA tensors, got {dt} on {dev}")
+    if not 1 <= sw.class_size <= CLASS_MAX_SIZE:
+        raise ValueError(f"class_sor_sweep takes tiles of 1-{CLASS_MAX_SIZE} rows, "
+                         f"not {sw.class_size}")
     n_pad = sw.A.nrows_pad
     _check("vals", sw.A.vals, dev, dt)
     _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
@@ -1282,11 +1354,25 @@ def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
     _check("b", b, dev, dt, (n_pad,))
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
     _check("x_lag", xl, dev, dt, ())
-    fn = getattr(_load(), f"mmp_class_sweep_{_SUFFIX[dt]}")
-    rc = _call(sw.role, n_pad, n_pad, fn, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
-               sw.A.width, n_pad, sw.class_size, sw.diag.data_ptr(), b.data_ptr(),
-               sw.mask.data_ptr(), sw.omega.data_ptr(), sw.lagc.data_ptr(), xl.data_ptr(),
-               x.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vecs = (sw.diag.data_ptr(), b.data_ptr(), sw.mask.data_ptr(), sw.omega.data_ptr(),
+            sw.lagc.data_ptr(), xl.data_ptr(), x.data_ptr())
+    if sw.role == CLASS_PARENT:
+        fn = getattr(_load(), f"mmp_class_tilewalk_{_SUFFIX[dt]}")
+        rc = _call(sw.role, n_pad, n_pad, fn, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
+                   sw.A.width, n_pad, sw.class_size, *vecs, stream)
+    else:
+        _check("lens", sw.A.lens, dev, torch.int32, (n_pad,))
+        _check("seg", sw.seg, dev, torch.int16, (n_pad,))
+        if (n_pad * sw.A.width) % 4 or sw.A.vals.data_ptr() % 16 or sw.A.cols.data_ptr() % 16:
+            raise ValueError("class_sor_sweep stages 16-byte-aligned tiles: n_pad * width "
+                             "must be a multiple of 4 and the tables 16-byte aligned")
+        fn = getattr(_load(), f"mmp_class_sweep_{_SUFFIX[dt]}")
+        info = (ctypes.c_int * 3)()
+        rc = _call(sw.role, n_pad, n_pad, fn, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
+                   sw.A.lens.data_ptr(), sw.seg.data_ptr(), sw.A.width, n_pad,
+                   sw.class_size, sw.window, sw.xring, *vecs, stream, info)
+        CLASS_INFO[sw.role] = tuple(info)
     _launch_ok(rc, "class_sor_sweep")
     COUNTS[sw.role] += 1
     return x

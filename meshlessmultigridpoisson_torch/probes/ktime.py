@@ -8,7 +8,9 @@ rows and 50 iterations).  On ``probes.realsparsity.real_pattern_csr(n)``
 generation runs, at the reference's block sizes:
 
 * v2 (``spmv_tpu2``, ``sor_sweep_tpu2``) at 128- and 256-row ELL blocks:
-  ``ell_spmv`` role ``spmv2`` and ``class_sor_sweep`` role ``sweep2``;
+  ``ell_spmv`` role ``spmv2`` and ``class_sor_sweep`` role ``sweep2``,
+  the latter also timed against its parent design (``sweep2_tilewalk``,
+  timing only) in turns parent, kernel, kernel, parent;
 * v4 (``spmv_tpu4``, ``sor_sweep_tpu4``) at 128 rows: ``ell_spmv`` role
   ``spmv4`` and ``class_sor_sweep`` role ``sweep4``;
 * v5 (``sor_sweep_tpu5``) at 128 rows: ``block_oneshot_sweep`` in storage
@@ -135,7 +137,11 @@ def run(n: int = N, iters: int = ITERS, seed: int = 0) -> dict:
         row(label, A.role, ms, plain_ms, err, scale, pf.spmv_bytes(A), pf.spmv_flops(A),
             lib)
 
-    def sweep(label, sw, fn, plain):
+    def sweep(label, sw, fn, plain, parent=None):
+        """``parent``: the parent design's tables (role
+        ``sweep2_tilewalk``), held against the same plain output and timed
+        beside the kernel in turns parent, kernel, kernel, parent; its row
+        is "``label`` parent"."""
         n_pad = sw.A.nrows_pad
         x0, b = x_all[:n_pad], b_all[:n_pad].contiguous()
         ref, plain_ms = _once_ms(lambda: plain(sw, x0.clone(), zl, b))
@@ -144,6 +150,16 @@ def run(n: int = N, iters: int = ITERS, seed: int = 0) -> dict:
         ms = pf.chain_time(lambda v: fn(sw, v, zl, b), xs, k=iters, reps=3) * 1e3
         row(label, sw.role, ms, plain_ms, err, scale, pf.sweep_bytes(sw),
             pf.sweep_flops(sw))
+        if parent is None:
+            return
+        perr, _ = held("sweep", f"{label} parent", fn(parent, x0.clone(), zl, b), ref)
+        t = [pf.chain_time(lambda v, s=s: fn(s, v, zl, b), torch.zeros_like(x0), k=iters,
+                           reps=1) * 1e3 for s in (parent, sw, sw, parent)]
+        row(f"{label} parent", parent.role, (t[0] + t[3]) / 2, plain_ms, perr, scale,
+            pf.sweep_bytes(sw), pf.sweep_flops(sw))
+        rows[label]["ab_ms"] = rows[f"{label} parent"]["ab_ms"] = t
+        log(f"  {label}: parent / kernel / kernel / parent "
+            + " / ".join(f"{v:.4f}" for v in t) + " ms")
 
     for br in (128, 256):
         ell = op["ells"][br]
@@ -153,7 +169,8 @@ def run(n: int = N, iters: int = ITERS, seed: int = 0) -> dict:
         spmv(f"spmv v2 (br={br})", A)
         sw = gk.class_sweep(A, ell.diag, np.ones(n), np.full(n_pad, OMEGA),
                             np.zeros(n_pad), role="sweep2")
-        sweep(f"sweep v2 (br={br})", sw, gk.class_sor_sweep, gk.class_sor_sweep_plain)
+        sweep(f"sweep v2 (br={br})", sw, gk.class_sor_sweep, gk.class_sor_sweep_plain,
+              dataclasses.replace(sw, role=gk.CLASS_PARENT))
         if br != 128:
             continue
         spmv("spmv v4", dataclasses.replace(A, role="spmv4"))

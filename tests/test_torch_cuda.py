@@ -506,10 +506,14 @@ def _class_sweep(case, dtype, et):
                           omega, np.full(n_pad, 0.01), role="sweep2")
 
 
+@pytest.mark.parametrize("role", ["sweep2", gk.CLASS_PARENT])
 @pytest.mark.parametrize("case", ["fixture", "real", "level"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-def test_class_sor_sweep_matches_plain(et, case, dtype, tol):
-    sw = _class_sweep(case, dtype, et)
+def test_class_sor_sweep_matches_plain(et, case, dtype, tol, role):
+    """The window kernel (``sweep2``) and the parent design
+    (``sweep2_tilewalk``): one launch counted under the role, the sweep's
+    tolerance, frozen rows bit-equal to the input."""
+    sw = dataclasses.replace(_class_sweep(case, dtype, et), role=role)
     n = sw.A.nrows_pad
     x, b = _rand(n, dtype, 12), _rand(n, dtype, 13)
     xl = torch.tensor(0.3, dtype=dtype, device="cuda")
@@ -517,11 +521,45 @@ def test_class_sor_sweep_matches_plain(et, case, dtype, tol):
     out = gk.class_sor_sweep(sw, x.clone(), xl, b)
     torch.cuda.synchronize()
     assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
-        "sweep2": 1}
+        role: 1}
     ref = gk.class_sor_sweep_plain(sw, x.clone(), xl, b)
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     frozen = sw.mask == 0
     assert bool(frozen.any()) and torch.equal(out[frozen], x[frozen])
+
+
+@pytest.mark.parametrize("class_size", [8, 4, 16, 32, 1, 2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_class_sor_sweep_windows_and_tile_sizes(class_size, dtype, tol):
+    """The window kernel on the real pattern (4,096 rows: 32 windows of
+    128 rows) at tile sizes 1-32 (32 to 1 chain lanes a row) against its
+    plain version, with frozen rows; the ring depth and shared bytes
+    reported."""
+    from meshlessmultigridpoisson_torch.probes.realsparsity import real_pattern_csr
+
+    ell = tell.ell_from_csr(real_pattern_csr(4096), block_rows=128)
+    n = ell.nrows_pad
+    smask = np.ones(n)
+    smask[::7] = 0.0
+    sw = gk.class_sweep(gk.device_ell(ell, dtype, "cuda", "spmv2"), ell.diag, smask,
+                        np.full(n, 1.2), np.full(n, 0.01), class_size=class_size)
+    assert n // sw.window > 1 and int(sw.seg.max()) > 0
+    x, b = _rand(n, dtype, 14), _rand(n, dtype, 15)
+    xl = torch.tensor(-0.2, dtype=dtype, device="cuda")
+    out = gk.class_sor_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    ref = gk.class_sor_sweep_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(out[sw.mask == 0], x[sw.mask == 0])
+    slots, nbytes, tiles = gk.CLASS_INFO["sweep2"]
+    assert 2 <= slots <= 32 and 0 < nbytes <= 232448 and 1 <= tiles * class_size <= 128
+
+
+def test_class_sor_sweep_refuses_tiles_over_32_rows(et):
+    sw = dataclasses.replace(_class_sweep("real", torch.float32, et), class_size=64)
+    x = _rand(sw.A.nrows_pad, torch.float32, 16)
+    with pytest.raises(ValueError, match="tiles of 1-32 rows"):
+        gk.class_sor_sweep(sw, x, torch.tensor(0.0, device="cuda"), x.clone())
 
 
 def test_cli_solve_v2_fallback_on_card():
@@ -554,8 +592,10 @@ def test_ktime_probe_on_card():
     res = ktime.run(n=16384, iters=2)
     assert all(gk.COUNTS[r] > 0 for r in ("spmv2", "sweep2", "spmv4", "sweep4", "sweep5"))
     assert set(res["kernels"]) == {"spmv v2 (br=128)", "sweep v2 (br=128)",
-                                   "spmv v2 (br=256)", "sweep v2 (br=256)",
+                                   "sweep v2 (br=128) parent", "spmv v2 (br=256)",
+                                   "sweep v2 (br=256)", "sweep v2 (br=256) parent",
                                    "spmv v4", "sweep v4", "sweep v5"}
+    assert gk.COUNTS[gk.CLASS_PARENT] > 0
     assert all(0 < r["bound_ms"] <= 1.05 * r["ms"] for r in res["kernels"].values())
 
 

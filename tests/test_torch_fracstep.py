@@ -54,6 +54,7 @@ from meshlessmultigridpoisson_torch.mg import mixed
 from meshlessmultigridpoisson_torch.models import fracstep as tfs
 from meshlessmultigridpoisson_torch.models import fracstep_gpu as fg
 from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+from test_torch_native import ensure_native_geometry
 
 # the test workers share the host's cores with the JAX test files: one
 # intra-op thread per process keeps torch's thread pool from contending
@@ -309,6 +310,7 @@ def test_cli_ns_cpu_matches_reference_record(tmp_path):
 
     steps = 5
     out = tmp_path / "ref.json"
+    ensure_native_geometry()  # both packages sample their clouds natively
     jcli._ns(argparse.Namespace(
         sizes=SIZES, deg=DEG, steps=steps, dt=2e-4, mu=0.025, rho=1.0,
         ppe_tol=1e-10, reference_ppe=False, implicit_diffusion=False,

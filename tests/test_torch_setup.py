@@ -33,6 +33,7 @@ from meshlessmultigridpoisson_torch.geometry import pointclouds as tpc
 from meshlessmultigridpoisson_torch.mg.setup import order_cloud
 from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem as tmake
 from meshlessmultigridpoisson_torch.stencil.phs import batched_weights as tweights
+from test_torch_native import ensure_native_geometry
 
 # the test workers share the host's cores with the JAX test files: one
 # intra-op thread per process keeps torch's thread pool from contending
@@ -117,6 +118,7 @@ def _ell_fields_match(ej, et):
 def test_level_and_transfer_operators_match(neumann):
     kw = dict(sizes=[200, 500], poly_deg=4, neumann=neumann,
               ordering="kdtile", block_rows=128)
+    ensure_native_geometry()  # both packages sample their clouds natively
     pj = jmake("square_with_circle", **kw)
     pt = tmake("square_with_circle", **kw)
     for lj, lt in zip(pj.hierarchy.levels, pt.hierarchy.levels):

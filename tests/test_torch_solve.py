@@ -32,6 +32,7 @@ from meshlessmultigridpoisson_tpu.models.poisson import make_poisson_problem as 
 from meshlessmultigridpoisson_torch import interop
 from meshlessmultigridpoisson_torch.mg import gpu_backend
 from meshlessmultigridpoisson_torch.mg.vcycle import run_v_cycles as trun
+from test_torch_native import ensure_native_geometry
 
 # the test workers share the host's cores with the JAX test files: one
 # intra-op thread per process keeps torch's thread pool from contending
@@ -110,6 +111,7 @@ def _reference_cli_solve(monkeypatch):
         sizes=SLICE["sizes"], deg=SLICE["deg"], k=1, neumann=False, seed=0,
         msh=None, ordering=SLICE["ordering"], block_rows=SLICE["block_rows"],
         setup_cache=None, profile=False, write_solution=None, tol=SLICE["tol"])
+    ensure_native_geometry()  # both packages sample their clouds natively
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         rec = jcli._solve(args)

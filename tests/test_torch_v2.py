@@ -62,6 +62,7 @@ from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
 from meshlessmultigridpoisson_torch.ops import smoothers as sm
 from meshlessmultigridpoisson_torch.probes import ktime, realsparsity
 from meshlessmultigridpoisson_torch.utils import profiling as pf
+from test_torch_native import ensure_native_geometry
 
 # the test workers share the host's cores with the JAX test files: one
 # intra-op thread per process keeps torch's thread pool from contending
@@ -471,6 +472,7 @@ def reference_solve():
         sizes=SLICE["sizes"], deg=SLICE["deg"], k=1, neumann=False, seed=0,
         msh=None, ordering=SLICE["ordering"], block_rows=SLICE["block_rows"],
         setup_cache=None, profile=False, write_solution=None, tol=SLICE["tol"])
+    ensure_native_geometry()  # both packages sample their clouds natively
     with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
         mp.setattr(jpoisson, "l1_error", spy)
         warnings.simplefilter("ignore")
