@@ -57,7 +57,12 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    lengths; f32, bf16 K, f64, as on the Dirichlet level), and the fused
    smoother on the fine and
    coarsest levels (f32, f64, bf16 K; with the Lagrange relax and the
-   boundary re-solve, x_lag 0.3, b_lag -0.4) as on the Dirichlet levels.
+   boundary re-solve, x_lag 0.3, b_lag -0.4) as on the Dirichlet levels,
+   then again with the V-cycle's re-solves in the same launch (the
+   re-solve and a pin of every 7th row to random values before the first
+   sweep, one more re-solve after the last), timed against those as
+   launches of their own around the fused call; every Neumann level's
+   boundary table's fill (mean ``lens`` over width) printed.
    Prints each comparison's relative error, the kernel's and the plain
    version's time, the kernel's bound (bytes over 3.35 TB/s or operations
    over the arithmetic peak, utils/profiling.py) and, for the SpMV and
@@ -85,16 +90,19 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ``sweep8``/``sweep7`` level: ``sweep8`` = 3 x ``sweep7`` launches (two
    calls a V-cycle on each colored level and on the coarsest; exact:
    ``sweep6`` = 15 x ``sweep7``, five sweeps a call on three levels), so
-   V-cycles = ``sweep7`` / 2; Neumann: ``bound2`` at most 3 a V-cycle (the
-   V-cycle-start, preconditioner and Krylov re-solves of the fine level;
-   the smoother's re-solves are inside its launches); relative L1
-   residual < 1e-8, re-checked
+   V-cycles = ``sweep7`` / 2; ``bound2`` exactly the standalone re-solves
+   at a Krylov solve's end and at the solve's end, passes + 1 (Neumann;
+   0 elsewhere): none in a V-cycle, whose fine re-solves ride in the fine
+   smoother's launch; relative L1 residual < 1e-8, re-checked
    from the returned (x, x_lag) with the plain f64 SpMV, border row
    included; L1 error < 1e-6.  After the Dirichlet and Neumann paths'
    counts are read, each timed solve runs four more times, in turns with
    every ``ell_spmv`` call on the parent design (``spmv_rowwarp``, checked
    by the counts: no ``spmv6`` or ``spmv8`` launch) and on the new kernel,
-   and the times are printed (each residual < 1e-8).  After the exact
+   and the times are printed (each residual < 1e-8); the Neumann timed
+   solve four times more, in turns with the V-cycle's re-solves and pin as
+   launches of their own (``bound2``, ``torch.where``) and fused, each run
+   failing unless its ``bound2`` count is its flow's.  After the exact
    path's counts are read, its timed solve runs again with every
    ``sweep6`` sweep on the parent chain (``sweep6_chain``; the run fails
    unless it launched ``sweep6_chain`` and no ``sweep6``), then on
@@ -109,23 +117,30 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ``probes.launchrank``'s excess by role;
 4. the fractional-step Navier-Stokes path (``cli ns``, Kovasznay, the
    reference program's default run at its default width and depth: sizes
-   170/600/2500/10000, deg 6): on its problem, ``compact_rows`` role
-   ``ppe2`` (f32, f64) on the fine boundary table and ``ell_spmv`` on the
+   170/600/2500/10000, deg 6): on its problem, ``ppe_tail`` (role ``ppe2``,
+   f32, f64: the compatible matvec's tail in one launch) against its plain
+   version and its parent design's launches (the scatter alone, role
+   ``ppe2_scatter``, also held against its plain version), device times
+   in turns, and ``ell_spmv`` on the
    derivative operators against their plain versions; then ``run_ns``
    in-process for 12 steps from rest (counts set to 0 before,
    read after), checking level kinds ``[v7-exact x3, v8-colored]``, the
    path's roles (SpMV, sweeps, ``bound2``, ``ppe2``) launched, one launch
    a smoother call (``sweep7`` = 3 x ``sweep8``: V-cycles = ``sweep7`` /
-   6), ``bound2`` at most 3 a V-cycle, every
+   6), ``bound2`` exactly one a PPE pass and one a step, ``ppe2`` exactly
+   one a compatible matvec (counted from the passes' inner iterations),
+   no ``ppe2_scatter``, every
    fs_residual finite, the steps 0, 4, 8, ... matching the reference's TPU
    record ``results/ns_tpu_r5.json`` within 2e-3 relative, and the last
    step's PPE solve (before the p_relax blend) re-checked with a plain f64
    composition of the compatible operator below 1e-9; then runs of 6
-   steps from rest on the same problem, in turns with every ``ell_spmv``
-   on the parent design and on the new kernel (parent, change, change,
-   parent, twice; each run's residuals within 2e-3 of the main path's),
-   printing each run's median step time and whether the two sides
-   separate;
+   steps from rest on the same problem, in turns parent, change, change,
+   parent, three times over (each run's residuals within 2e-3 of the main
+   path's), the parent with the V-cycle's re-solves and the matvec's tail
+   as separate launches (each run failing unless its ``bound2``, ``ppe2``
+   and ``ppe2_scatter`` counts are its flow's), printing each run's median
+   step time and whether the two sides separate, run by run and round by
+   round;
 5. on the bench's 1M-row operator (5 colors of ~1,640 blocks), the fused
    colored smoother in f32, f64 and bf16 K as on the slice's levels (5
    sweeps, no border) and the storage-order chain (f32, 8,192 blocks)
@@ -140,7 +155,8 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    bench and both probes): ``probes.kexp`` with 3 iterations (``spmv2``,
    ``spmv3`` and ``spmv1`` at 128- and 256-row blocks, ``sweep1`` at 128),
    then ``probes.ksweepprobe`` with 3 sweeps (the four modes of
-   ``sweep_probe``), each in-process with its counts set to 0 before and
+   ``sweep_probe``, compile-time modes of ``storage_chain``; ``probe_base``
+   also bit for bit against a ``sweep6`` sweep), each in-process with its counts set to 0 before and
    read after; each probe holds every kernel or mode against its plain
    version before timing it; every role launched, each at or above its
    bound; prints the chain's split per block;
@@ -224,8 +240,11 @@ ROLES = {
                "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
     "push2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
               "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
-    "ppe2": ("compact_rows", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
+    "ppe2": ("ppe_tail", "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
              "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
+    "ppe2_scatter": ("compact_rows (parent design of ppe_tail)",
+                     "meshlessmultigridpoisson_torch/csrc/compact_rows.cu",
+                     "meshlessmultigridpoisson_tpu/ops/kernels.py:510"),
     "stream14": ("stream_ceiling", "meshlessmultigridpoisson_torch/csrc/stream_ceiling.cu",
                  "bench.py:118"),
     "sweep2": ("class_sor_sweep", "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
@@ -247,8 +266,7 @@ ROLES = {
               "meshlessmultigridpoisson_tpu/ops/kernels.py:669"),
     "sweep1": ("class_sor_sweep", "meshlessmultigridpoisson_torch/csrc/class_sor_sweep.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels.py:303"),
-    **{m: ("block_oneshot_sweep",
-           "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
+    **{m: ("storage_chain", "meshlessmultigridpoisson_torch/csrc/storage_chain.cu",
            "scripts/ksweepprobe.py:110")
        for m in ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")},
     **{f"kstream_{m}": ("stream_ceiling",
@@ -285,11 +303,6 @@ BENCH_ROLES = ("spmv6", "sweep6", "sweep8", "sweep8_percolor", "stream14")
 # in the A/B timing (one launch a color; the parent single-CTA chain)
 PARENT_ROLE = {"sweep8": "sweep8_percolor", "sweep7": "sweep6_chain"}
 SMOOTH_ITERS = 5  # sweeps a smoother call (every level's default)
-# compact_rows re-solves of the fine level outside the smoother: two a
-# V-cycle (mg/vcycle.py at its start, mg/krylov.py after the
-# preconditioner's), one a Krylov solve; the smoother's own (one a sweep
-# and level before the fused kernels) run inside its launches
-BOUND2_PER_VCYCLE = 3
 # the probes on the bench's 1M-row operator (built once for all three)
 KEXP_ITERS = 3
 KEXP_ROLES = ("spmv1", "spmv2", "spmv3", "sweep1")
@@ -312,8 +325,8 @@ KISO8_ROLES = ("kiso8_mxu", "kiso8_mxudef", "kiso8_vpu")
 # and depth (cli ns defaults), S steps from rest
 NS_SIZES = [170, 600, 2500, 10000]
 NS_STEPS = 12
-NS_AB_STEPS = 6  # steps a run of the NS SpMV A/B
-NS_AB_ROUNDS = 2  # rounds of parent, change, change, parent
+NS_AB_STEPS = 6  # steps a run of the NS A/B
+NS_AB_ROUNDS = 3  # rounds of parent, change, change, parent
 NS_ROLES = DIRICHLET_ROLES + ("bound2", "ppe2")
 NS_EXPECT_KERNELS = ["v7-exact", "v7-exact", "v7-exact", "v8-colored"]
 # the reference's TPU record of that run (2000 steps; history every 4th step)
@@ -424,6 +437,20 @@ def vcycles(kinds, counts) -> int:
     return v
 
 
+def ns_matvecs(inner) -> int:
+    """Compatible matvecs of NS steps from each step's PPE passes' inner
+    iterations (``ppe_inner_iters``): a step's f64 residual before its
+    passes, and per pass its BiCGStab's 1 + 2 an iteration and the f64
+    residual after it."""
+    return sum(1 + sum(2 + 2 * its for its in step) for step in inner)
+
+
+def ns_bound2(inner) -> int:
+    """Standalone re-solves of NS steps: one a Krylov solve (mg/krylov.py's
+    last) and one a PPE solve (mg/mixed.py's, f64)."""
+    return sum(len(step) + 1 for step in inner)
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser()
@@ -438,10 +465,12 @@ def main(argv=None) -> int:
     try:
         from meshlessmultigridpoisson_torch import bench
         from meshlessmultigridpoisson_torch.apps import cli
+        from meshlessmultigridpoisson_torch.mg import gpu_backend
         from meshlessmultigridpoisson_torch.mg.gpu_backend import (
             gpu_hierarchy,
             gpu_level_from_operator,
         )
+        from meshlessmultigridpoisson_torch.models import fracstep_gpu
         from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
         from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
         from meshlessmultigridpoisson_torch.probes import (
@@ -501,15 +530,16 @@ def main(argv=None) -> int:
 
     def record(role, label, tol_key, err, scale, ms, plain_ms, nbytes, flops,
                dtype, library_ms=None, device=None, extra=None):
-        """``device``: (kernel, library) device ms per call, for a kernel
-        whose chain time is the host's enqueue rate; ``extra``: more keys
-        for the kernels line."""
+        """``device``: (kernel, library or None) device ms per call, for a
+        kernel whose chain time is the host's enqueue rate; ``extra``: more
+        keys for the kernels line."""
         rel = err / max(scale, 1e-300)
         tol = TOL[tol_key]
         b_ms, by = pf.bound_ms(nbytes, flops, dtype, card_name)
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
-        dev_t = "" if device is None else (f"  device time: kernel {device[0]:.4f} ms, "
-                                           f"library {device[1]:.4f} ms")
+        dev_t = "" if device is None else (
+            f"  device time: kernel {device[0]:.4f} ms"
+            + ("" if device[1] is None else f", library {device[1]:.4f} ms"))
         print(f"  {label:<52s} rel err {rel:.3e} (tol {tol:.0e})  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
               f"({by}){lib}{dev_t}", flush=True)
@@ -713,13 +743,17 @@ def main(argv=None) -> int:
                extra=dict(link_us=1e3 * tp / tiles))
 
     def check_smooth(label, sw, lag_row=None, bound=None, omega=1.4,
-                     iters=SMOOTH_ITERS):
+                     iters=SMOOTH_ITERS, start=None):
         """One fused smoother call (``iters`` sweeps, with the relax given
         ``lag_row`` and the re-solve given ``bound``; x_lag 0.3, b_lag -0.4)
         against its plain version: counted once, a rerun bit-identical, x
         and x_lag within the sweep's tolerance.  Then one call timed both
         ways in turns, the parent design's loop of launches and the fused
-        launch: loop, fused, fused, loop."""
+        launch: loop, fused, fused, loop.  Given ``start`` (mask, values), the
+        call holds the V-cycle's re-solves too (the first from the input x,
+        then the pin; one more after the last sweep), against their plain
+        version, and is timed against them as launches of their own
+        (``bound2``, ``torch.where``) around the fused call without them."""
         dtype = sw.A.vals.dtype
         n = sw.A.nrows_pad
         x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
@@ -728,17 +762,19 @@ def main(argv=None) -> int:
         xl = torch.tensor(xl0, dtype=dtype, device=dev)
         bl = torch.tensor(-0.4, dtype=dtype, device=dev)
         args = (b, bl, iters, omega, lag_row, bound)
-        before = gk.COUNTS[sw.role]
-        out, out_l = gk.block_smooth(sw, x0, xl, *args)
+        ends = {} if start is None else dict(start=start, resolve_last=True)
+        before = dict(gk.COUNTS)
+        out, out_l = gk.block_smooth(sw, x0, xl, *args, **ends)
         torch.cuda.synchronize()
-        if gk.COUNTS[sw.role] != before + 1:
-            raise AssertionError(f"block_smooth {label}: not one launch counted")
+        made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
+        if made != {sw.role: 1}:
+            raise AssertionError(f"block_smooth {label}: launches {made}, not one {sw.role}")
         staging = gk.SMOOTH_INFO[sw.role]
-        again, again_l = gk.block_smooth(sw, x0, xl, *args)
+        again, again_l = gk.block_smooth(sw, x0, xl, *args, **ends)
         torch.cuda.synchronize()
         if not (torch.equal(again, out) and torch.equal(again_l, out_l)):
             raise AssertionError(f"block_smooth {label}: a rerun gave other bits")
-        ref, ref_l = gk.block_smooth_plain(sw, x0, xl, *args)
+        ref, ref_l = gk.block_smooth_plain(sw, x0, xl, *args, **ends)
         bf = sw.kT.dtype == torch.bfloat16
         dt = "bf16k" if bf else dname(dtype)
         scale = float((ref - x0).abs().max() if bf else ref.abs().max())
@@ -750,30 +786,47 @@ def main(argv=None) -> int:
         psw = dataclasses.replace(sw, role=PARENT_ROLE[sw.role])
 
         def fused(v):
-            return gk.block_smooth(sw, v, xl, *args)[0]
+            return gk.block_smooth(sw, v, xl, *args, **ends)[0]
 
         def loop(v):
-            return gk.smooth_loop(psw, v, xl, b, bl, iters, omega, lag_row, bound)[0]
+            if start is None:
+                return gk.smooth_loop(psw, v, xl, b, bl, iters, omega, lag_row, bound)[0]
+            v = torch.where(start[0] > 0, start[1], gk.compact_rows(bound, v.clone(), b))
+            return gk.compact_rows(bound, gk.block_smooth(sw, v, xl, *args)[0], b)
 
         k = 20 if n < 500_000 else 4
         t = [ms_of(f, x0, k) for f in (loop, fused, fused, loop)]
-        pms = ms_of(lambda v: gk.block_smooth_plain(sw, v, xl, *args)[0], x0, 1)
+        pms = ms_of(lambda v: gk.block_smooth_plain(sw, v, xl, *args, **ends)[0], x0, 1)
         kernel = ROLES[sw.role][0]
         what = (f"{iters} sweeps" + (", relax" if lag_row is not None else "")
-                + (f", {bound.nrows} boundary rows" if bound is not None else ""))
+                + (f", {bound.nrows} boundary rows" if bound is not None else "")
+                + (", the V-cycle's re-solves and pin" if start is not None else ""))
+        names = ("loop", "fused") if start is None else ("separate re-solves", "fused")
         print(f"  A/B one smoother call, {kernel} {dt} {label} ({what}; grid, K and ELL "
-              f"buffers, shared bytes {staging}): loop {t[0]:.4f} / fused {t[1]:.4f} / "
-              f"fused {t[2]:.4f} / loop {t[3]:.4f} ms ({card})", flush=True)
+              f"buffers, shared bytes {staging}): {names[0]} {t[0]:.4f} / {names[1]} "
+              f"{t[1]:.4f} / {names[1]} {t[2]:.4f} / {names[0]} {t[3]:.4f} ms ({card})",
+              flush=True)
         record(sw.role, f"{kernel} {dt} {label}, one smoother call ({what})",
                ("sweep", dt), float((out - ref).abs().max()), scale, (t[1] + t[2]) / 2,
-               pms, pf.smooth_bytes(sw, lag_row, bound),
-               pf.smooth_flops(sw, iters, lag_row, bound), dtype,
+               pms, pf.smooth_bytes(sw, lag_row, bound, start),
+               pf.smooth_flops(sw, iters, lag_row, bound, 0 if start is None else 2), dtype,
                extra=dict(loop_ms=(t[0] + t[3]) / 2, ab_ms=t, staging=staging,
                           x_lag_err=err_l))
 
-    def check_level_smooth(label, lv):
+    def check_level_smooth(label, lv, start=None):
         check_smooth(label, lv.sweep, *pf.level_smooth_args(lv), omega=lv.omega,
-                     iters=lv.iters)
+                     iters=lv.iters, start=start)
+
+    def random_pin(lv):
+        """A pin on level ``lv`` for the fused re-solves' check: every 7th
+        row that no boundary row targets, to random values (the Neumann
+        levels pin no row of their own)."""
+        mask = lv.dirichlet_mask.clone()
+        mask[::7] = 1.0
+        rows = lv.bound.rows[: lv.bound.nrows].long()
+        mask[rows[rows < lv.n_pad]] = 0.0
+        vals = torch.randn(lv.n_pad, generator=gen, dtype=torch.float64).to(dev, mask.dtype)
+        return mask, vals
 
     def storage_order(sw, role):
         nb = sw.A.nrows_pad // gk.LANES
@@ -874,9 +927,35 @@ def main(argv=None) -> int:
             raise AssertionError(f"the parent-SpMV run did not take the parent design: "
                                  f"{ {k: v for k, v in made.items() if v} }")
 
+    @contextlib.contextmanager
+    def unfused():
+        """The parent flow of the ``compact_rows`` fold inside: the V-cycle's
+        fine re-solves and Dirichlet pin as launches of their own around the
+        smoother call (``bound2``, ``torch.where``), and the compatible
+        matvec's tail as the parent's launches (``ppe_tail_loop``: the
+        ``ppe2_scatter`` scatter, then elementwise ops)."""
+        smooth, tail = gpu_backend.smooth, fracstep_gpu.ppe_tail
+
+        def parent_smooth(op, x_, x_lag, b_, b_lag, iters=None, resolve_first=False,
+                          resolve_last=False):
+            if resolve_first:
+                x_ = gpu_backend.bound_eval_neumann(op, x_, b_)
+                x_ = torch.where(op.dirichlet_mask > 0, op.dirichlet_values, x_)
+            x_, x_lag = smooth(op, x_, x_lag, b_, b_lag, iters)
+            if resolve_last:
+                x_ = gpu_backend.bound_eval_neumann(op, x_, b_)
+            return x_, x_lag
+
+        gpu_backend.smooth, fracstep_gpu.ppe_tail = parent_smooth, gk.ppe_tail_loop
+        try:
+            yield
+        finally:
+            gpu_backend.smooth, fracstep_gpu.ppe_tail = smooth, tail
+
     def check_compact(label, C):
         """Kernel vs plain on one table: "bound2" re-solves x in place,
-        "push2" gathers b, "ppe2" scatters into a copy of b (never x)."""
+        "push2" gathers b, "ppe2_scatter" scatters into a copy of b (never
+        x); each row read to its lens (the table's fill printed)."""
         n = C.n_pad
         x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, C.vals.dtype)
         b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, C.vals.dtype)
@@ -901,10 +980,63 @@ def main(argv=None) -> int:
         dev_ms = device_times(ms, lambda v: gk.compact_rows(C, v, bs), lambda v: csr @ v,
                               xs, 200)
         dt = dname(C.vals.dtype)
+        fill = pf.compact_fill(C)
+        print(f"  compact_rows {C.role} {dt} {label}: fill (mean lens / width) "
+              f"{fill:.4f} of width {C.width}", flush=True)
         record(C.role, f"compact_rows {dt} {label} ({C.nrows} of {C.m_pad} rows, "
-               f"width {C.width})", ("compact", dt), err, float(ref.abs().max()),
-               ms, pms, pf.compact_bytes(C), pf.compact_flops(C), C.vals.dtype, lms,
-               dev_ms)
+               f"width {C.width}, fill {fill:.3f})", ("compact", dt), err,
+               float(ref.abs().max()), ms, pms, pf.compact_bytes(C), pf.compact_flops(C),
+               C.vals.dtype, lms, dev_ms, extra=dict(fill=fill))
+
+    def check_tail(label, T):
+        """``ppe_tail`` (role ppe2, one launch) against its plain version and
+        the parent design's launches (``ppe_tail_loop``: the ``ppe2_scatter``
+        scatter and the elementwise ops) on the same inputs; then device
+        times in turns parent, kernel, kernel, parent, twice over (each
+        call runs a few us: the chain time is the host's)."""
+        C = T.C
+        dt_, n = C.vals.dtype, C.n_pad
+        p, q, x = (torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dt_)
+                   for _ in range(3))
+        xl = torch.tensor(0.3, dtype=dt_, device=dev)
+        before = dict(gk.COUNTS)
+        y = gk.ppe_tail(T, p, q, x, xl)
+        torch.cuda.synchronize()
+        made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
+        if made != {"ppe2": 1}:
+            raise AssertionError(f"ppe_tail {label}: launches {made}, not one ppe2")
+        ref = gk.ppe_tail_loop(T, p, q, x, xl, plain=True)
+        par = gk.ppe_tail_loop(T, p, q, x, xl)
+        scale = float(ref.abs().max())
+        dt = dname(dt_)
+        if not float((par - ref).abs().max()) <= TOL[("compact", dt)] * scale:
+            raise AssertionError(f"ppe_tail {label}: the parent design disagrees")
+
+        def kernel(v):
+            return gk.ppe_tail(T, p, q, v, xl)
+
+        def parent(v):
+            return gk.ppe_tail_loop(T, p, q, v, xl)
+
+        ms, par_ms = ms_of(kernel, x, 200), ms_of(parent, x, 200)
+        pms = ms_of(lambda v: gk.ppe_tail_loop(T, p, q, v, xl, plain=True), x, 50)
+        turns = ("parent", "kernel", "kernel", "parent") * 2
+        d = [pf.device_ms(kernel if side == "kernel" else parent, x, 50) for side in turns]
+        dk, dp = (statistics.median(v for k, v in zip(turns, d) if k == side)
+                  for side in ("kernel", "parent"))
+        nbytes, flops = pf.ppe_tail_bytes(T), pf.ppe_tail_flops(T)
+        b_ms = pf.bound_ms(nbytes, flops, dt_, card_name)[0]
+        print(f"  A/B ppe_tail {dt} {label} ({n} rows, {C.nrows} boundary rows of width "
+              f"{C.width}, fill {pf.compact_fill(C):.3f}): device ms "
+              + " / ".join(f"{k} {v:.4f}" for k, v in zip(turns, d))
+              + f"; medians kernel {dk:.4f} (one launch) / parent {dp:.4f} (five); host "
+              f"chain ms kernel {ms:.4f} / parent {par_ms:.4f}; bound {b_ms:.4f} ms "
+              f"({card})", flush=True)
+        record("ppe2", f"ppe_tail {dt} {label} ({n} rows, {C.nrows} boundary rows)",
+               ("compact", dt), float((y - ref).abs().max()), scale, ms, pms, nbytes,
+               flops, dt_, None, (dk, None),
+               extra=dict(parent_ms=par_ms, parent_device_ms=dp, device_ab_ms=d,
+                          pct_of_bound=100 * b_ms / dk))
 
     t0 = time.perf_counter()
     prob = make_poisson_problem(**geom, neumann=True, device=dev)
@@ -912,6 +1044,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"phase-2 Neumann setup {time.perf_counter() - t0:.1f} s, sizes "
           f"{[c.n for c in prob.clouds]}", flush=True)
+    for i, op in enumerate(prob.hierarchy.levels):  # what each re-solve reads
+        C = gk.device_compact(op.bound, torch.float32, dev, "bound2")
+        print(f"  Neumann L{i} boundary table: {C.nrows} rows of width {C.width}, fill "
+              f"(mean lens / width) {pf.compact_fill(C):.4f}", flush=True)
     for dt in (torch.float32, torch.float64):
         check_compact("fine boundary re-solve",
                       gk.device_compact(fine.bound, dt, dev, "bound2"))
@@ -931,9 +1067,10 @@ def main(argv=None) -> int:
                 for sw in ((lv.sweep, bf16k(lv.sweep)) if dt == torch.float32
                            else (lv.sweep,)):
                     check_chain("Neumann fine, storage order", storage_order(sw, "sweep6"))
-            check_level_smooth(name, lv)
-            if dt == torch.float32:
-                check_level_smooth(name, dataclasses.replace(lv, sweep=bf16k(lv.sweep)))
+            pin = random_pin(lv)
+            for sw in (lv.sweep, bf16k(lv.sweep)) if dt == torch.float32 else (lv.sweep,):
+                check_level_smooth(name, dataclasses.replace(lv, sweep=sw))
+                check_level_smooth(name, dataclasses.replace(lv, sweep=sw), start=pin)
             del lv
     del prob, fine
     torch.cuda.empty_cache()
@@ -990,9 +1127,14 @@ def main(argv=None) -> int:
                   + ", ".join(f"{r} {timed[r] / v:g}" for r in
                               ("sweep8", "sweep7", "sweep6", "bound2", "spmv8", "spmv6")),
                   flush=True)
-            if not timed["bound2"] <= BOUND2_PER_VCYCLE * v:
-                return fail(f"{path}: {timed['bound2']} bound2 launches in {v} "
-                            "V-cycles: the smoother's re-solves are not all fused")
+        # standalone re-solves: one a Krylov solve and one at the end (none
+        # in a V-cycle: the fine level's ride in its fused smoother launch)
+        want_b2 = rec.cycles + 1 if path == "neumann" else 0
+        print(f"{path}: bound2 launches in the timed solve {timed['bound2']} (want "
+              f"{want_b2}: {rec.cycles} passes + 1)", flush=True)
+        if timed["bound2"] != want_b2:
+            return fail(f"{path}: {timed['bound2']} bound2 launches, not {want_b2}: a "
+                        "V-cycle's re-solve ran outside the fine smoother's launch")
         want_k = {"fast-k": "torch.bfloat16", "v2": None}.get(path, "torch.float32")
         if any(d != want_k for d in rec.extra["level_k_dtypes"]):
             return fail(f"{path}: K dtypes {rec.extra['level_k_dtypes']}, want {want_k}")
@@ -1025,6 +1167,30 @@ def main(argv=None) -> int:
             print(f"{path}: timed solve, ell_spmv parent / change / change / parent "
                   + " / ".join(f"{w:.4f}" for w in walls) + f" s (passes {cycles}) "
                   f"({card})", flush=True)
+            del r_ab
+        if path == "neumann":
+            # the compact_rows fold: the timed solve with the V-cycle's
+            # re-solves as launches of their own, in turns parent, change,
+            # change, parent; each run's counts show which flow ran
+            walls, cycles, b2 = [], [], []
+            for side in ("parent", "change", "change", "parent"):
+                with unfused() if side == "parent" else contextlib.nullcontext():
+                    r_ab, *_ = cli.run_solve(argv, problem=prob)
+                    torch.cuda.synchronize()
+                n_ab = r_ab.extra["launches"]
+                want = r_ab.cycles + 1 + (2 * vcycles(kinds, n_ab) if side == "parent" else 0)
+                if n_ab["bound2"] != want:
+                    return fail(f"{path} fold A/B ({side}): {n_ab['bound2']} bound2 "
+                                f"launches, not {want}: not the {side}'s flow")
+                if not r_ab.final_residual < 1e-8:
+                    return fail(f"{path} fold A/B ({side}): residual "
+                                f"{r_ab.final_residual:.3e} >= 1e-8")
+                walls.append(r_ab.wall_time_s)
+                cycles.append(r_ab.cycles)
+                b2.append(n_ab["bound2"])
+            print(f"{path}: timed solve, V-cycle re-solves separate / fused / fused / "
+                  "separate " + " / ".join(f"{w:.4f}" for w in walls) + f" s (passes "
+                  f"{cycles}, bound2 launches {b2}) ({card})", flush=True)
             del r_ab
         if path == "exact":  # the timed solve on the parent chain, in turns
             walls = [rec.wall_time_s]
@@ -1119,8 +1285,9 @@ def main(argv=None) -> int:
     print(f"phase-4 NS setup {time.perf_counter() - t0:.1f} s, sizes "
           f"{[c.n for c in nsp.clouds]}, level kinds "
           f"{[lv.kernel_kind for lv in gfs.hd.levels]}", flush=True)
-    check_compact("NS compatible-PPE scatter", gfs.ppe32)
-    check_compact("NS compatible-PPE scatter", gfs.ppe64)
+    for T in (gfs.ppe32, gfs.ppe64):
+        check_tail("NS compatible-PPE matvec tail", T)
+        check_compact("NS compatible-PPE scatter", T.scatter)
     check_spmv("spmv6", "NS d/dx", gfs.dx32)
     check_spmv("spmv6", "NS velocity Laplacian", gfs.lap32)
     check_spmv("spmv6", "NS d/dx", gfs.dx64)
@@ -1154,9 +1321,15 @@ def main(argv=None) -> int:
     print(f"ns: {v} V-cycles; launches a V-cycle: "
           + ", ".join(f"{r} {launches['ns'][r] / v:g}" for r in
                       ("sweep8", "sweep7", "bound2", "ppe2", "spmv8", "spmv6")), flush=True)
-    if not launches["ns"]["bound2"] <= BOUND2_PER_VCYCLE * v:
-        return fail(f"ns: {launches['ns']['bound2']} bound2 launches in {v} V-cycles: "
-                    "the smoother's re-solves are not all fused")
+    # no re-solve in a V-cycle (the fine level's ride in its fused smoother
+    # launch), and one ppe2 launch a compatible matvec
+    inner = rec.extra["ppe_inner_iters"]
+    want = {"bound2": ns_bound2(inner), "ppe2": ns_matvecs(inner), "ppe2_scatter": 0}
+    got = {k: rec.extra["launches"][k] for k in want}
+    print(f"ns: launches {got}, want {want} (from the passes' inner iterations)",
+          flush=True)
+    if got != want:
+        return fail(f"ns: launches {got}, not {want}")
     hist = rec.residual_history  # every step while steps < 1000
     if len(hist) != NS_STEPS or not all(math.isfinite(h) for h in hist):
         return fail(f"ns: fs_residual history not finite or short: {hist}")
@@ -1183,41 +1356,69 @@ def main(argv=None) -> int:
           f"{ex['ppe_residual'][-1]:.3e})", flush=True)
     if not recheck < 1e-9:
         return fail(f"ns: re-checked PPE residual {recheck:.3e} >= 1e-9")
-    # NS steps with every ell_spmv on the parent design (the only kernel
-    # this path changed), against the new kernel, in turns parent, change,
-    # change, parent, NS_AB_ROUNDS times; each run NS_AB_STEPS steps from
-    # rest on one repacked problem, its first step left out of the medians
     gfs = build_gpu_fracstep(prob, dev)
-    step_s = {"parent": [], "change": []}
-    run_meds = {"parent": [], "change": []}
-    for side in ("parent", "change", "change", "parent") * NS_AB_ROUNDS:
-        times, t_prev = [], [time.perf_counter()]
 
-        def on_step(i, state, st, times=times, t_prev=t_prev):
-            now = time.perf_counter()
-            times.append(now - t_prev[0])
-            t_prev[0] = now
+    def ns_ab(what, parent_ctx, rounds, check):
+        """Runs of NS_AB_STEPS steps from rest on one repacked problem in
+        turns parent, change, change, parent, ``rounds`` times; each run's
+        residuals within NS_HIST_RTOL of the main path's and its launch
+        counts held by ``check(side, counts, inner iterations a pass)``;
+        prints each run's median step time (its first step left out) and
+        whether the two sides separate, by run and by round."""
+        step_s = {"parent": [], "change": []}
+        run_meds = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent") * rounds:
+            times, inner_ab, t_prev = [], [], [time.perf_counter()]
 
-        with parent_spmv() if side == "parent" else contextlib.nullcontext():
-            t_prev[0] = time.perf_counter()
-            _, h_ab, _ = run_gpu(prob, dev, steps=NS_AB_STEPS, t=gfs, on_step=on_step)
-        d = max(abs(a - b) / b for a, b in zip(h_ab, hist))
-        if not d <= NS_HIST_RTOL:
-            return fail(f"ns A/B ({side}): fs_residual deviates {d:.3e} from the main path")
-        step_s[side] += times[1:]
-        run_meds[side].append(statistics.median(times[1:]))
-    med = {k: statistics.median(v) for k, v in step_s.items()}
-    if max(run_meds["change"]) < min(run_meds["parent"]):
-        verdict = "the change faster in every run"
-    elif max(run_meds["parent"]) < min(run_meds["change"]):
-        verdict = "the change slower in every run"
-    else:
-        verdict = "not resolved: the runs' medians overlap"
-    print(f"ns: ell_spmv A/B, s a step (median of steps 1-{NS_AB_STEPS - 1} of each run, in "
-          f"turns): parent {[round(m, 4) for m in run_meds['parent']]}, change "
-          f"{[round(m, 4) for m in run_meds['change']]}; pooled median parent "
-          f"{med['parent']:.4f} / change {med['change']:.4f}; {verdict} ({card})",
-          flush=True)
+            def on_step(i, state, st, times=times, inner_ab=inner_ab, t_prev=t_prev):
+                now = time.perf_counter()
+                times.append(now - t_prev[0])
+                t_prev[0] = now
+                inner_ab.append([its for its, _, _ in st["ppe_passes"]])
+
+            before = dict(gk.COUNTS)
+            with parent_ctx() if side == "parent" else contextlib.nullcontext():
+                t_prev[0] = time.perf_counter()
+                _, h_ab, _ = run_gpu(prob, dev, steps=NS_AB_STEPS, t=gfs, on_step=on_step)
+            torch.cuda.synchronize()
+            check(side, {k: gk.COUNTS[k] - before[k] for k in before}, inner_ab)
+            d = max(abs(a - b) / b for a, b in zip(h_ab, hist))
+            if not d <= NS_HIST_RTOL:
+                raise AssertionError(f"ns {what} A/B ({side}): fs_residual deviates "
+                                     f"{d:.3e} from the main path")
+            step_s[side] += times[1:]
+            run_meds[side].append(statistics.median(times[1:]))
+        med = {k: statistics.median(v) for k, v in step_s.items()}
+        if max(run_meds["change"]) < min(run_meds["parent"]):
+            verdict = "the change faster in every run"
+        elif max(run_meds["parent"]) < min(run_meds["change"]):
+            verdict = "the change slower in every run"
+        else:
+            verdict = "not resolved: the runs' medians overlap"
+        # a round's two change runs against its two parent runs
+        faster = sum(sum(run_meds["change"][2 * k:2 * k + 2])
+                     < sum(run_meds["parent"][2 * k:2 * k + 2]) for k in range(rounds))
+        print(f"ns: {what} A/B, s a step (median of steps 1-{NS_AB_STEPS - 1} of each "
+              f"run, in turns): parent {[round(m, 4) for m in run_meds['parent']]}, change "
+              f"{[round(m, 4) for m in run_meds['change']]}; pooled median parent "
+              f"{med['parent']:.4f} / change {med['change']:.4f}; {verdict}; the change "
+              f"faster in {faster} of {rounds} rounds ({card})", flush=True)
+
+    def fold_flow(side, n, inner_ab):
+        """The change: no bound2 in a V-cycle, one ppe2 a matvec; the
+        parent: two bound2 more a V-cycle, the tail as ppe2_scatter."""
+        mv = ns_matvecs(inner_ab)
+        par = side == "parent"
+        want = {"bound2": ns_bound2(inner_ab)
+                + (2 * vcycles(NS_EXPECT_KERNELS, n) if par else 0),
+                "ppe2": 0 if par else mv, "ppe2_scatter": mv if par else 0}
+        got = {k: n[k] for k in want}
+        if got != want:
+            raise AssertionError(f"ns fold A/B ({side}): launches {got}, not {want}")
+
+    # the compact_rows fold against its parent flow
+    ns_ab("re-solves and matvec tail fused / separate", unfused, NS_AB_ROUNDS,
+          fold_flow)
     del rec, prob, last, gfs
     torch.cuda.empty_cache()
 
@@ -1395,7 +1596,7 @@ def main(argv=None) -> int:
                                                      "x_lag_err", "col_format",
                                                      "parent_device_ms", "pct_of_bound",
                                                      "device_ab_ms", "parent_ms",
-                                                     "chain_ab_ms", "link_us")
+                                                     "chain_ab_ms", "link_us", "fill")
                                    if c.get(k) is not None}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)

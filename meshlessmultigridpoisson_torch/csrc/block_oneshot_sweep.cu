@@ -22,10 +22,10 @@
 //     launch per color, the parent of block_smooth.cu's colored_smooth; the
 //     coarsest storage-order sweep (kernels6.py sor_sweep_tpu7) runs in
 //     block_smooth.cu's coarse_smooth.
-// The sweep probes below run here too.  CTA i handles blocks i,
-// i + gridDim.x, ... of the phase list, with a block barrier between
-// consecutive blocks, so a grid of one CTA is the exact storage-order chain
-// and a grid of one CTA per block is one color's parallel phase.
+// CTA i handles blocks i, i + gridDim.x, ... of the phase list, with a
+// block barrier between consecutive blocks, so a grid of one CTA is the
+// exact storage-order chain and a grid of one CTA per block is one color's
+// parallel phase.  (The sweep probe's modes run on storage_chain.cu.)
 //
 // K in bf16 (`solve --fast-k`): the instance with KT = __nv_bfloat16 takes
 // f32 vals/x/b/lag_col and computes what the TPU's fast mode computes
@@ -48,25 +48,6 @@
 // sweeps into one launch; storage_chain.cu shortens the storage-order
 // chain's link (K and ELL rows fetched ahead, all 128 rows gathered at
 // once, each row read to its last nonzero).
-//
-// Timing-only variants (the reference's scripts/ksweepprobe.py:110
-// make_sweep_variant; probes/ksweepprobe.py): the kernel is templated on a
-// compile-time Mode.  The production entry points instantiate kBase only,
-// and their code is the same as before the variants existed.  The others
-// compute other functions, are f32 only, run the storage-order chain on
-// one CTA, and never reach a solve; each splits off one part of a chain
-// step so that the base time minus the variant's time is that part's cost:
-//   kNoDot     skip the K product: x_blk += t
-//   kNoGather  skip the gather and row sum: t = b - lag_col * x_lag,
-//              then x_blk += K t
-//   kHoist     the blocks of each group of kGroup consecutive list entries
-//              all gather x as it stood when the group began (the rows
-//              the group writes are read stale); the updates are as in
-//              kBase.  So the group's 1,024 row gathers are issued at once,
-//              and no x load of a group waits on an update of that group.
-//              The port's own definition: the reference's hoist fills its
-//              scratch from the first block's patch list only, an artifact
-//              of the TPU's patch-table layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,24 +64,17 @@ using mmp_sweep::kWarp;
 using mmp_sweep::t_in;
 using mmp_sweep::warp_sum;
 
-constexpr int kGroup = 8;  // blocks per hoisted group (the reference's MB)
-
-enum SweepMode : int { kBase = 0, kHoist = 1, kNoDot = 2, kNoGather = 3 };
-
-// (A x)_row by one warp, valid in lane 0; kNoGather skips it (0)
-template <int Mode, typename T>
+// (A x)_row by one warp, valid in lane 0
+template <typename T>
 __device__ __forceinline__ T row_sum(const T* __restrict__ vals,
                                      const int* __restrict__ cols, int width,
                                      const T* x, size_t row, int lane) {
   T acc = T(0);
-  if constexpr (Mode != kNoGather) {
-    const size_t base = row * static_cast<size_t>(width);
-    for (int k = lane; k < width; k += kWarp) {
-      acc += vals[base + k] * x[cols[base + k]];
-    }
-    acc = warp_sum(acc);
+  const size_t base = row * static_cast<size_t>(width);
+  for (int k = lane; k < width; k += kWarp) {
+    acc += vals[base + k] * x[cols[base + k]];
   }
-  return acc;
+  return warp_sum(acc);
 }
 
 // x_blk += K_blk t (t in shared memory): thread (h, r) sums inputs
@@ -127,7 +101,7 @@ __device__ __forceinline__ void add_k_product(const KT* __restrict__ kb,
   __syncthreads();
 }
 
-template <typename T, typename KT, int Mode>
+template <typename T, typename KT>
 __global__ void __launch_bounds__(kThreads)
 block_oneshot_sweep_kernel(const T* __restrict__ vals,
                            const int* __restrict__ cols, int width,
@@ -137,65 +111,37 @@ block_oneshot_sweep_kernel(const T* __restrict__ vals,
                            const KT* __restrict__ kT,
                            const int* __restrict__ blk_ids, int nblk,
                            T* x) {  // read and written: no __restrict__
-  __shared__ T t_s[Mode == kHoist ? kGroup * kBlk : kBlk];
+  __shared__ T t_s[kBlk];
   __shared__ T part[kThreads];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const T xlag = *xlag_ptr;
 
-  if constexpr (Mode == kHoist) {
-    for (int g = blockIdx.x * kGroup; g < nblk; g += gridDim.x * kGroup) {
-      const int gsize = min(kGroup, nblk - g);
-      // every row of the group gathers from x as it stands now
-      for (int q = warp; q < gsize * kBlk; q += kThreads / kWarp) {
-        const size_t row = static_cast<size_t>(blk_ids[g + q / kBlk]) * kBlk
-                           + q % kBlk;
-        const T acc = row_sum<Mode>(vals, cols, width, x, row, lane);
-        if (lane == 0) {
-          t_s[q] = t_in<T, KT>(b[row] - acc - lagc[row] * xlag);
-        }
-      }
-      __syncthreads();
-      for (int j = 0; j < gsize; ++j) {
-        const int blk = blk_ids[g + j];
-        add_k_product<T, KT>(kT + static_cast<size_t>(blk) * kBlk * kBlk,
-                             t_s + j * kBlk, part, x,
-                             static_cast<size_t>(blk) * kBlk);
+  for (int i = blockIdx.x; i < nblk; i += gridDim.x) {
+    const int blk = blk_ids[i];
+    const size_t row0 = static_cast<size_t>(blk) * kBlk;
+
+    // t = b - A x - lag_col * x_lag: one warp per row
+    for (int r = warp; r < kBlk; r += kThreads / kWarp) {
+      const T acc = row_sum(vals, cols, width, x, row0 + r, lane);
+      if (lane == 0) {
+        t_s[r] = t_in<T, KT>(b[row0 + r] - acc - lagc[row0 + r] * xlag);
       }
     }
-  } else {
-    for (int i = blockIdx.x; i < nblk; i += gridDim.x) {
-      const int blk = blk_ids[i];
-      const size_t row0 = static_cast<size_t>(blk) * kBlk;
-
-      // t = b - A x - lag_col * x_lag: one warp per row
-      for (int r = warp; r < kBlk; r += kThreads / kWarp) {
-        const T acc = row_sum<Mode>(vals, cols, width, x, row0 + r, lane);
-        if (lane == 0) {
-          t_s[r] = t_in<T, KT>(b[row0 + r] - acc - lagc[row0 + r] * xlag);
-        }
-      }
-      __syncthreads();
-
-      if constexpr (Mode == kNoDot) {
-        if (threadIdx.x < kBlk) x[row0 + threadIdx.x] += t_s[threadIdx.x];
-        __syncthreads();
-      } else {
-        add_k_product<T, KT>(kT + static_cast<size_t>(blk) * kBlk * kBlk, t_s,
-                             part, x, row0);
-      }
-    }
+    __syncthreads();
+    add_k_product<T, KT>(kT + static_cast<size_t>(blk) * kBlk * kBlk, t_s,
+                         part, x, row0);
   }
 }
 
-template <typename T, typename KT, int Mode = kBase>
+template <typename T, typename KT>
 int launch_sweep(const T* vals, const int* cols, int width, const T* b,
                  const T* lagc, const T* xlag, const KT* kT,
                  const int* blk_ids, int nblk, int serial, T* x,
                  void* stream) {
   if (nblk > 0) {
     const int grid = serial ? 1 : nblk;
-    block_oneshot_sweep_kernel<T, KT, Mode>
+    block_oneshot_sweep_kernel<T, KT>
         <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             vals, cols, width, b, lagc, xlag, kT, blk_ids, nblk, x);
   }
@@ -233,34 +179,4 @@ extern "C" int mmp_block_sweep_f32_bf16k(const float* vals, const int* cols,
   return launch_sweep<float, __nv_bfloat16>(vals, cols, width, b, lagc, xlag,
                                             kT, blk_ids, nblk, serial, x,
                                             stream);
-}
-
-// the timing-only variants (f32, storage order, one CTA); mode is a
-// SweepMode.  Returns cudaErrorInvalidValue for an unknown mode.
-extern "C" int mmp_sweep_probe_f32(const float* vals, const int* cols,
-                                   int width, const float* b,
-                                   const float* lagc, const float* xlag,
-                                   const float* kT, const int* blk_ids,
-                                   int nblk, int mode, float* x,
-                                   void* stream) {
-  switch (mode) {
-    case kBase:
-      return launch_sweep<float, float, kBase>(vals, cols, width, b, lagc,
-                                               xlag, kT, blk_ids, nblk, 1, x,
-                                               stream);
-    case kHoist:
-      return launch_sweep<float, float, kHoist>(vals, cols, width, b, lagc,
-                                                xlag, kT, blk_ids, nblk, 1, x,
-                                                stream);
-    case kNoDot:
-      return launch_sweep<float, float, kNoDot>(vals, cols, width, b, lagc,
-                                                xlag, kT, blk_ids, nblk, 1, x,
-                                                stream);
-    case kNoGather:
-      return launch_sweep<float, float, kNoGather>(vals, cols, width, b, lagc,
-                                                   xlag, kT, blk_ids, nblk, 1,
-                                                   x, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }

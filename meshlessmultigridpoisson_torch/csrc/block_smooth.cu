@@ -10,11 +10,26 @@
 //   3. if the level has Neumann boundary rows, their re-solve in place
 //        x[r] = (b[r] - (C x - d x[r])) / d     (compact_rows mode 0; legal
 //      in place because no boundary row reads another one: the repack's
-//      check_resolve_in_place).
+//      check_resolve_in_place), each row read to its lens.
 // This is the reference's tpu_backend.smooth scan
 // (meshlessmultigridpoisson_tpu/mg/tpu_backend.py:341-379) with its sweep
 // kernel inside; the math is block_oneshot_sweep.cu's and compact_rows.cu's,
 // summed in the same order.
+//
+// The V-cycle's own re-solves of the fine level run in the same launch:
+//   * resolve_first: before the first sweep, the re-solve of the boundary
+//     rows from x as the launch got it (x_in), then the Dirichlet pin
+//     x = dvals where dmask > 0 (the V-cycle's start, mg/vcycle.py: the
+//     reference's re-solve, then apply_dirichlet, then the smoother).  The
+//     re-solve reads x_in only and writes the pinned output, and the copy
+//     of x_in into the output pins every row: a grid barrier after each;
+//   * resolve_last: after the last sweep's re-solve, one more (the
+//     preconditioner's, mg/krylov.py _precond).  Each warp re-solves the
+//     rows it re-solved last, whose only x written since the last grid
+//     barrier is their own target, written by the same warp: a warp
+//     barrier orders them.
+// The pin (dmask, dvals) belongs to resolve_first: the pointers are given
+// exactly when it is set (the launcher refuses anything else).
 //
 // Two kernels, both templated on (T, KT): f32, f64, and f32 vectors with
 // bf16 K (t rounded to bf16, products exact in f32, as the TPU's fast mode).
@@ -138,10 +153,15 @@ struct SmoothArgs {
   T* xlag_out;     // nullptr: not written
   const T* bvals;  // boundary rows (compact ELL, global columns)
   const int* bcols;
+  const int* blens;  // one past each boundary row's last nonzero
   const int* brows;  // target rows; >= n_pad: padding slot
   const T* bdiag;
   int bwidth;
   int bnrows;      // 0: no re-solve
+  const T* dmask;  // the pin: x = dvals where dmask > 0 before the first
+  const T* dvals;  //   sweep; given exactly when resolve_first is set
+  int resolve_first;  // re-solve the boundary rows before the first sweep
+  int resolve_last;   // and once more after the last
   const T* x_in;   // == x: in place
   T* x;
   T* partials;     // [2 * grid] colored kernel's Lagrange partials
@@ -286,6 +306,34 @@ struct PatchX {
   __device__ T ld_x(int i) const { return xp[i]; }
 };
 
+// v, or the pinned value of row i where the pin (dmask, dvals) holds it
+template <typename T>
+__device__ __forceinline__ T pinned(const T* dmask, const T* dvals, int i, T v) {
+  return dmask != nullptr && dmask[i] > T(0) ? dvals[i] : v;
+}
+
+// the first re-solve: x read as the launch got it (x_in, which nothing in
+// the launch writes), each row written pinned into x (device memory for
+// colored_smooth, shared memory for coarse_smooth)
+template <typename T, bool kShared>
+struct FirstVecs {
+  const T* x_in;
+  T* x;
+  const T* b;
+  const T* dmask;
+  const T* dvals;
+  __device__ T ld_x(int i) const { return x_in[i]; }
+  __device__ T ld_b(int i) const { return b[i]; }
+  __device__ void st_x(int i, T v) const {
+    v = pinned(dmask, dvals, i, v);
+    if constexpr (kShared) {
+      x[i] = v;
+    } else {
+      __stcg(x + i, v);
+    }
+  }
+};
+
 // t = b - A x - lag_col * x_lag over the block's rows (v, c: the block's
 // ELL rows, in shared or device memory; bq, lq: lane 0's b and lag_col *
 // x_lag of its rows, loaded before).  Warp w sums rows w, w + 16, ...,
@@ -363,7 +411,7 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
 
 // The boundary rows' re-solve (compact_rows.cu mode 0): warp `first` of
 // `stride` warps takes rows first, first + stride, ...; kResolveBatch of them
-// at once.  brows, bdiag: in shared or device memory.
+// at once, each read to its lens.  brows, bdiag: in shared or device memory.
 template <typename T, typename KT, class V>
 __device__ __forceinline__ void resolve(const SmoothArgs<T, KT>& a,
                                         const V& vec, const int* brows,
@@ -372,14 +420,20 @@ __device__ __forceinline__ void resolve(const SmoothArgs<T, KT>& a,
   const int lane = threadIdx.x % kWarp;
   for (int i0 = first; i0 < a.bnrows; i0 += kResolveBatch * stride) {
     T acc[kResolveBatch];
+    int len[kResolveBatch];
+    int kmax = 0;
 #pragma unroll
-    for (int q = 0; q < kResolveBatch; ++q) acc[q] = T(0);
-    for (int k = lane; k < a.bwidth; k += kWarp) {
+    for (int q = 0; q < kResolveBatch; ++q) {
+      const int i = i0 + q * stride;
+      acc[q] = T(0);
+      len[q] = i < a.bnrows ? a.blens[i] : 0;
+      kmax = max(kmax, len[q]);
+    }
+    for (int k = lane; k < kmax; k += kWarp) {
 #pragma unroll
       for (int q = 0; q < kResolveBatch; ++q) {
-        const int i = i0 + q * stride;
-        if (i < a.bnrows) {
-          const size_t e = static_cast<size_t>(i) * a.bwidth + k;
+        if (k < len[q]) {
+          const size_t e = static_cast<size_t>(i0 + q * stride) * a.bwidth + k;
           acc[q] += a.bvals[e] * vec.ld_x(a.bcols[e]);
         }
       }
@@ -528,11 +582,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   Cursor kc, ec;
   start_ring(a, ring, kc, ec);
-  if (a.x_in != a.x) {  // out of place: copy, then every CTA sees it
+  const int rwarp = blockIdx.x * kWarps + threadIdx.x / kWarp;  // re-solve
+  if (a.x_in != a.x) {  // out of place: copy (pinned), then every CTA sees it
     for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.n_pad;
          i += G * kThreads) {
-      __stcg(a.x + i, a.x_in[i]);
+      __stcg(a.x + i, pinned(a.dmask, a.dvals, i, a.x_in[i]));
     }
+    grid.sync();
+  }
+  if (a.resolve_first && a.bnrows > 0) {  // over the copy's target rows
+    resolve<T, KT>(a, FirstVecs<T, false>{a.x_in, a.x, a.b, a.dmask, a.dvals},
+                   a.brows, a.bdiag, rwarp, G * kWarps);
     grid.sync();
   }
   const GlobalVecs<T> vec{a.x, a.b, a.lagc, a.lagr};
@@ -574,10 +634,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
     }
     if (a.bnrows > 0) {
-      resolve<T, KT>(a, vec, a.brows, a.bdiag,
-                     blockIdx.x * kWarps + threadIdx.x / kWarp, G * kWarps);
+      resolve<T, KT>(a, vec, a.brows, a.bdiag, rwarp, G * kWarps);
       if (it + 1 < a.iters) grid.sync();
     }
+  }
+  if (a.resolve_last && a.bnrows > 0) {  // the same rows on the same warps
+    __syncwarp();
+    resolve<T, KT>(a, vec, a.brows, a.bdiag, rwarp, G * kWarps);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0 && a.xlag_out != nullptr) {
     *a.xlag_out = xl;
@@ -605,7 +668,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   Cursor kc, ec;
   start_ring(a, ring, kc, ec);  // the K and ELL copies overlap the loads
   for (int i = threadIdx.x; i < a.n_pad; i += kThreads) {
-    xs[i] = a.x_in[i];
+    xs[i] = pinned(a.dmask, a.dvals, i, a.x_in[i]);
     bs[i] = a.b[i];
     lcs[i] = a.lagc[i];
     if (a.lagr != nullptr) lrs[i] = a.lagr[i];
@@ -615,6 +678,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     brs[i] = a.brows[i];
   }
   __syncthreads();
+  if (a.resolve_first && m > 0) {
+    resolve<T, KT>(a, FirstVecs<T, true>{a.x_in, xs, bs, a.dmask, a.dvals}, brs,
+                   bds, threadIdx.x / kWarp, kWarps);
+    __syncthreads();
+  }
   const SharedVecs<T> vec{xs, bs, lcs, a.lagr != nullptr ? lrs : nullptr};
   T xl = *a.xlag_in;
   const T blag = a.lagr != nullptr ? *a.blag : T(0);
@@ -638,6 +706,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       resolve<T, KT>(a, vec, brs, bds, threadIdx.x / kWarp, kWarps);
       __syncthreads();
     }
+  }
+  if (a.resolve_last && m > 0) {
+    resolve<T, KT>(a, vec, brs, bds, threadIdx.x / kWarp, kWarps);
+    __syncthreads();
   }
   for (int i = threadIdx.x; i < a.n_pad; i += kThreads) a.x[i] = xs[i];
   if (threadIdx.x == 0 && a.xlag_out != nullptr) *a.xlag_out = xl;
@@ -677,7 +749,12 @@ int launch_smooth(SmoothArgs<T, KT> a, int coarse, int max_phase,
       break;
     }
   }
-  if (a.nk == 0 || max_phase < 1 || a.iters < 1) {
+  // the first re-solve reads x_in whole while the output is written; the
+  // pin comes with it and only with it
+  const bool pin = a.dmask != nullptr;
+  if (a.nk == 0 || max_phase < 1 || a.iters < 1 ||
+      (a.resolve_first && a.x_in == a.x) || (a.bnrows > 0 && a.blens == nullptr) ||
+      pin != (a.dvals != nullptr) || pin != (a.resolve_first != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kern = coarse ? coarse_smooth_kernel<T, KT> : colored_smooth_kernel<T, KT>;
@@ -729,9 +806,10 @@ int smooth_entry(int coarse, const T* vals, const int* cols,
                  const int* order, const int* ptr, int nphases, int max_phase,
                  int iters, double omega, const T* lagr, const T* blag,
                  const T* xlag_in, T* xlag_out, const T* bvals,
-                 const int* bcols, const int* brows, const T* bdiag,
-                 int bwidth, int bnrows, const T* x_in, T* x, T* partials,
-                 void* stream, int* info) {
+                 const int* bcols, const int* blens, const int* brows,
+                 const T* bdiag, int bwidth, int bnrows, const T* dmask,
+                 const T* dvals, int resolve_first, int resolve_last,
+                 const T* x_in, T* x, T* partials, void* stream, int* info) {
   SmoothArgs<T, KT> a;
   a.vals = vals;
   a.cols = cols;
@@ -755,10 +833,15 @@ int smooth_entry(int coarse, const T* vals, const int* cols,
   a.xlag_out = xlag_out;
   a.bvals = bvals;
   a.bcols = bcols;
+  a.blens = blens;
   a.brows = brows;
   a.bdiag = bdiag;
   a.bwidth = bwidth;
   a.bnrows = bnrows;
+  a.dmask = dmask;
+  a.dvals = dvals;
+  a.resolve_first = resolve_first;
+  a.resolve_last = resolve_last;
   a.x_in = x_in;
   a.x = x;
   a.partials = partials;
@@ -770,6 +853,8 @@ int smooth_entry(int coarse, const T* vals, const int* cols,
 
 // coarse: 0 colored_smooth (cooperative grid; lcols, pids, npid, npmax:
 // its x patches), 1 coarse_smooth (one CTA; the patch arguments unread).
+// dmask, dvals: the pin, non-null exactly when resolve_first is set;
+// resolve_first needs x_in != x.
 // info (4 ints, may be null): grid, K buffers, ELL buffers, shared bytes.
 #define MMP_SMOOTH_ENTRY(NAME, T, KT)                                        \
   extern "C" int NAME(int coarse, const T* vals, const int* cols,            \
@@ -779,15 +864,18 @@ int smooth_entry(int coarse, const T* vals, const int* cols,
                       const int* order, const int* ptr, int nphases,         \
                       int max_phase, int iters, double omega, const T* lagr, \
                       const T* blag, const T* xlag_in, T* xlag_out,          \
-                      const T* bvals, const int* bcols, const int* brows,    \
-                      const T* bdiag, int bwidth, int bnrows, const T* x_in, \
+                      const T* bvals, const int* bcols, const int* blens,    \
+                      const int* brows, const T* bdiag, int bwidth,          \
+                      int bnrows, const T* dmask, const T* dvals,            \
+                      int resolve_first, int resolve_last, const T* x_in,    \
                       T* x, T* partials, void* stream, int* info) {          \
     return smooth_entry<T, KT>(coarse, vals, cols, lcols, pids, npid, npmax, \
                                width, n_pad, b, lagc,                        \
                                kT, order, ptr, nphases, max_phase, iters,    \
                                omega, lagr, blag, xlag_in, xlag_out, bvals,  \
-                               bcols, brows, bdiag, bwidth, bnrows, x_in, x, \
-                               partials, stream, info);                      \
+                               bcols, blens, brows, bdiag, bwidth, bnrows,   \
+                               dmask, dvals, resolve_first, resolve_last,    \
+                               x_in, x, partials, stream, info);             \
   }
 
 MMP_SMOOTH_ENTRY(mmp_block_smooth_f32, float, float)

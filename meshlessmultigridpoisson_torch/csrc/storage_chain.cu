@@ -59,6 +59,30 @@
 // visible to it after __syncthreads(), so the gather reads x with plain
 // (L1-allocating) loads, never the non-coherent path.  (colored_smooth,
 // whose CTAs read each other's writes, must read x at L2.)
+//
+// Timing-only variants (the reference's scripts/ksweepprobe.py:110
+// make_sweep_variant; probes/ksweepprobe.py): the kernel is templated on a
+// compile-time Mode, and the production entry points instantiate kBase,
+// whose code is the same as before the variants existed (checked on the
+// SASS: probes/sassloads.py compare).  The sweep probe's "probe_base" is that
+// production f32 instance itself.  The others compute other functions, are
+// f32 only, and never reach a solve; each drops one part of a link so that
+// the base time minus the variant's is that part's cost:
+//   kNoDot     no K product (no K staged or prefetched): x_blk += t
+//   kNoGather  no gather and row sum (no ELL rows staged or prefetched):
+//              t = b - lag_col * x_lag, then x_blk += K t
+//   kHoist     the blocks of each group of kGroup consecutive list entries
+//              all gather x as it stood when the group began (1,024 rows,
+//              read from device memory, prefetched into L2 a group ahead),
+//              then the group's kGroup products run on two K buffers; the
+//              rows the group writes are read stale.  The port's own
+//              definition: the reference's hoist fills its scratch from the
+//              first block's patch list only, an artifact of the TPU's
+//              patch-table layout.  Base minus hoist is NOT the link's
+//              wait on x: hoist has no ELL tile (its rows come from L2),
+//              gathers the group's blocks one after another (a block's
+//              loads issued after the previous block's row sums) and runs
+//              a barrier pair a product, costs that no mode separates.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +110,9 @@ constexpr int kRowsPerWarp = kBlk / kWarps;  // 8 gather rows a warp
 constexpr int kSector = 8;  // f32 values / int32 columns a 32-byte sector
 constexpr int kSteps = 2;   // 32-entry steps of each row in flight
 constexpr int kAhead = 3;   // blocks whose rows and K are prefetched into L2
+constexpr int kGroup = 8;   // blocks a kHoist group (the reference's MB)
+
+enum ChainMode : int { kBase = 0, kHoist = 1, kNoDot = 2, kNoGather = 3 };
 
 template <typename T>
 __device__ __forceinline__ T warp_allsum(T v) {
@@ -144,18 +171,23 @@ __device__ __forceinline__ void prefetch_span(const void* p, size_t bytes) {
   bulk_prefetch_l2(reinterpret_cast<const void*>(lo), static_cast<uint32_t>(hi - lo));
 }
 
-// Bring block blk's rows (values, columns, lens, b, lag_col) and K into L2.
-template <typename T, typename KT>
+// Bring block blk's rows (values, columns, lens, b, lag_col) and K into L2
+// (what the mode reads of them).
+template <int Mode, typename T, typename KT>
 __device__ __forceinline__ void prefetch_block(const ChainArgs<T, KT>& a,
                                                int blk) {
   const size_t e0 = static_cast<size_t>(blk) * kBlk * a.width;
   const size_t r0 = static_cast<size_t>(blk) * kBlk;
-  prefetch_span(a.vals + e0, kBlk * a.width * sizeof(T));
-  prefetch_span(a.cols + e0, kBlk * a.width * sizeof(int));
-  prefetch_span(a.lens + r0, kBlk * sizeof(int));
+  if constexpr (Mode != kNoGather) {
+    prefetch_span(a.vals + e0, kBlk * a.width * sizeof(T));
+    prefetch_span(a.cols + e0, kBlk * a.width * sizeof(int));
+    prefetch_span(a.lens + r0, kBlk * sizeof(int));
+  }
   prefetch_span(a.b + r0, kBlk * sizeof(T));
   prefetch_span(a.lagc + r0, kBlk * sizeof(T));
-  prefetch_span(a.kT + r0 * kBlk, kBlk * kBlk * sizeof(KT));
+  if constexpr (Mode != kNoDot) {
+    prefetch_span(a.kT + r0 * kBlk, kBlk * kBlk * sizeof(KT));
+  }
 }
 
 template <typename T, typename KT>
@@ -239,97 +271,205 @@ __device__ __forceinline__ void load_rows(const ChainArgs<T, KT>& a, int blk,
   }
 }
 
+// kHoist: groups of kGroup blocks, each gathered whole against x as the
+// group began, then its products; K on two buffers (the K tile's barrier
+// and the unused ELL barrier), block j's in buffer j & 1; t of the whole
+// group at L.t.
 template <typename T, typename KT>
-__global__ void __launch_bounds__(kThreads, 1)
-    storage_chain_kernel(const ChainArgs<T, KT> a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void hoist_walk(const ChainArgs<T, KT>& a,
+                                           unsigned char* smem) {
+  constexpr uint32_t ktile = kBlk * kBlk * sizeof(KT);
   uint64_t* kbar = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* ebar = kbar + 1;
-  unsigned char* kbuf = smem + 128;
   T* t_s = reinterpret_cast<T*>(smem + a.L.t);
   T* part = reinterpret_cast<T*>(smem + a.L.part);
-  const T* tile_v = reinterpret_cast<const T*>(smem + a.L.ebuf);
-  const int* tile_c = reinterpret_cast<const int*>(smem + a.L.ecols);
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
+  const int r = threadIdx.x % kBlk;
+  const int h = threadIdx.x / kBlk;
   const T xl = *a.xlag;
-
   if (threadIdx.x == 0) {
     mbar_init(kbar);
-    mbar_init(ebar);
+    mbar_init(kbar + 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    load_k(a, kbuf, kbar, a.order[0]);
-    if (a.ne) load_e(a, smem, ebar, a.order[0]);
-    for (int d = 0; d < kAhead && d < a.nblk; ++d) prefetch_block(a, a.order[d]);
+    for (int s = 0; s < 2 && s < a.nblk; ++s) {
+      load_k(a, smem + 128 + s * ktile, kbar + s, a.order[s]);
+    }
+    for (int d = 0; d < 2 * kGroup && d < a.nblk; ++d) {
+      prefetch_block<kHoist>(a, a.order[d]);
+    }
   }
   __syncthreads();
-
-  int len = 0;
-  T bq = T(0), lq = T(0);
-  int blk = a.order[0];
-  load_rows(a, blk, xl, len, bq, lq);
-  for (int j = 0; j < a.nblk; ++j) {
-    const int row0 = blk * kBlk;
-    if (threadIdx.x == 0 && j + kAhead < a.nblk) {
-      prefetch_block(a, a.order[j + kAhead]);
+  for (int g = 0; g < a.nblk; g += kGroup) {
+    const int gsize = min(kGroup, a.nblk - g);
+    if (threadIdx.x == 0) {  // the group after next into L2
+      for (int d = g + 2 * kGroup; d < g + 3 * kGroup && d < a.nblk; ++d) {
+        prefetch_block<kHoist>(a, a.order[d]);
+      }
     }
-    // the own rows' x: no earlier block of the list writes them
-    const int r = threadIdx.x % kBlk;
-    const int h = threadIdx.x / kBlk;
-    const T xo = h == 0 ? a.x[row0 + r] : T(0);
-
-    // t = b - A x - lag_col * x_lag: warp w's rows w + 16 q, all at once,
-    // from the ELL tile (ne = 1) or device memory
-    T acc[kRowsPerWarp];
-    if (a.ne) {
-      mbar_wait(ebar, j & 1);
-      gather_rows<T>(tile_v, tile_c, 0, a.width, len, a.x, acc);
-    } else {
-      gather_rows<T>(a.vals, a.cols, row0, a.width, len, a.x, acc);
-    }
+    // every row of the group gathers from x as it stands now
+    for (int jj = 0; jj < gsize; ++jj) {
+      const int blk = a.order[g + jj];
+      int len = 0;
+      T bq = T(0), lq = T(0);
+      load_rows(a, blk, xl, len, bq, lq);
+      T acc[kRowsPerWarp];
+      gather_rows<T>(a.vals, a.cols, blk * kBlk, a.width, len, a.x, acc);
 #pragma unroll
-    for (int q = 0; q < kRowsPerWarp; ++q) {
-      const T sum = warp_allsum(acc[q]);
-      const T bqq = __shfl_sync(0xffffffffu, bq, q);
-      const T lqq = __shfl_sync(0xffffffffu, lq, q);
-      if (lane == q) t_s[warp + q * kWarps] = t_in<T, KT>(bqq - sum - lqq);
+      for (int q = 0; q < kRowsPerWarp; ++q) {
+        const T sum = warp_allsum(acc[q]);
+        const T bqq = __shfl_sync(0xffffffffu, bq, q);
+        const T lqq = __shfl_sync(0xffffffffu, lq, q);
+        if (lane == q) {
+          t_s[jj * kBlk + warp + q * kWarps] = t_in<T, KT>(bqq - sum - lqq);
+        }
+      }
     }
-    __syncthreads();  // t complete, the ELL tile free
-
-    // the next block's id, rows and x-independent row data, in flight
-    // during the product
-    const int next = j + 1 < a.nblk ? a.order[j + 1] : 0;
-    if (j + 1 < a.nblk) {
-      if (a.ne && threadIdx.x == 0) load_e(a, smem, ebar, next);
-      load_rows(a, next, xl, len, bq, lq);
-    }
-
-    // x_blk += K_blk t: thread (h, r) sums inputs [h, h + 1) * 128 / 4 of
-    // output row r; thread (0, r) adds the 4 partial sums
-    mbar_wait(kbar, j & 1);
-    const KT* kb = reinterpret_cast<const KT*>(kbuf);
-    T dx = T(0);
+    __syncthreads();
+    // the group's products: x_blk += K_blk t_blk
+    for (int jj = 0; jj < gsize; ++jj) {
+      const int j = g + jj;
+      const int s = j & 1;
+      const int row0 = a.order[j] * kBlk;
+      const T xo = h == 0 ? a.x[row0 + r] : T(0);
+      mbar_wait(kbar + s, (j >> 1) & 1);
+      const KT* kb = reinterpret_cast<const KT*>(smem + 128 + s * ktile);
+      const T* tb = t_s + jj * kBlk;
+      T dx = T(0);
 #pragma unroll 8
-    for (int c = h * (kBlk / kSplit); c < (h + 1) * (kBlk / kSplit); ++c) {
-      dx += k_val(kb[c * kBlk + r]) * t_s[c];
+      for (int c = h * (kBlk / kSplit); c < (h + 1) * (kBlk / kSplit); ++c) {
+        dx += k_val(kb[c * kBlk + r]) * tb[c];
+      }
+      part[threadIdx.x] = dx;
+      __syncthreads();
+      if (h == 0) {
+        T sum = T(0);
+        for (int q = 0; q < kSplit; ++q) sum += part[r + q * kBlk];
+        a.x[row0 + r] = xo + sum;
+      }
+      __syncthreads();  // buffer s and part are free
+      if (threadIdx.x == 0 && j + 2 < a.nblk) {
+        load_k(a, smem + 128 + s * ktile, kbar + s, a.order[j + 2]);
+      }
     }
-    part[threadIdx.x] = dx;
-    __syncthreads();
-    if (h == 0) {
-      T s = T(0);
-      for (int q = 0; q < kSplit; ++q) s += part[r + q * kBlk];
-      a.x[row0 + r] = xo + s;
-    }
-    // the next block reads the new rows; the K buffer and t are free
-    __syncthreads();
-    if (threadIdx.x == 0 && j + 1 < a.nblk) load_k(a, kbuf, kbar, next);
-    blk = next;
   }
 }
 
-// The ELL tile is taken where it fits beside the K tile in the card's
-// shared memory (f32 and bf16 K at the slice's widths, not f64).
+template <typename T, typename KT, int Mode>
+__global__ void __launch_bounds__(kThreads, 1)
+    storage_chain_kernel(const ChainArgs<T, KT> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if constexpr (Mode == kHoist) {
+    hoist_walk(a, smem);
+  } else {
+    uint64_t* kbar = reinterpret_cast<uint64_t*>(smem);
+    uint64_t* ebar = kbar + 1;
+    unsigned char* kbuf = smem + 128;
+    T* t_s = reinterpret_cast<T*>(smem + a.L.t);
+    T* part = reinterpret_cast<T*>(smem + a.L.part);
+    const T* tile_v = reinterpret_cast<const T*>(smem + a.L.ebuf);
+    const int* tile_c = reinterpret_cast<const int*>(smem + a.L.ecols);
+    const int warp = threadIdx.x / kWarp;
+    const int lane = threadIdx.x % kWarp;
+    const T xl = *a.xlag;
+
+    if (threadIdx.x == 0) {
+      mbar_init(kbar);
+      mbar_init(ebar);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if constexpr (Mode != kNoDot) load_k(a, kbuf, kbar, a.order[0]);
+      if (a.ne) load_e(a, smem, ebar, a.order[0]);
+      for (int d = 0; d < kAhead && d < a.nblk; ++d) prefetch_block<Mode>(a, a.order[d]);
+    }
+    __syncthreads();
+
+    int len = 0;
+    T bq = T(0), lq = T(0);
+    int blk = a.order[0];
+    load_rows(a, blk, xl, len, bq, lq);
+    for (int j = 0; j < a.nblk; ++j) {
+      const int row0 = blk * kBlk;
+      if (threadIdx.x == 0 && j + kAhead < a.nblk) {
+        prefetch_block<Mode>(a, a.order[j + kAhead]);
+      }
+      // the own rows' x: no earlier block of the list writes them
+      const int r = threadIdx.x % kBlk;
+      const int h = threadIdx.x / kBlk;
+      const T xo = h == 0 ? a.x[row0 + r] : T(0);
+
+      // t = b - A x - lag_col * x_lag: warp w's rows w + 16 q, all at once,
+      // from the ELL tile (ne = 1) or device memory
+      T acc[kRowsPerWarp];
+      if constexpr (Mode != kNoGather) {
+        if (a.ne) {
+          mbar_wait(ebar, j & 1);
+          gather_rows<T>(tile_v, tile_c, 0, a.width, len, a.x, acc);
+        } else {
+          gather_rows<T>(a.vals, a.cols, row0, a.width, len, a.x, acc);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kRowsPerWarp; ++q) {
+        T sum = T(0);
+        if constexpr (Mode != kNoGather) sum = warp_allsum(acc[q]);
+        const T bqq = __shfl_sync(0xffffffffu, bq, q);
+        const T lqq = __shfl_sync(0xffffffffu, lq, q);
+        if (lane == q) t_s[warp + q * kWarps] = t_in<T, KT>(bqq - sum - lqq);
+      }
+      __syncthreads();  // t complete, the ELL tile free
+
+      // the next block's id, rows and x-independent row data, in flight
+      // during the product
+      const int next = j + 1 < a.nblk ? a.order[j + 1] : 0;
+      if (j + 1 < a.nblk) {
+        if (a.ne && threadIdx.x == 0) load_e(a, smem, ebar, next);
+        load_rows(a, next, xl, len, bq, lq);
+      }
+
+      if constexpr (Mode == kNoDot) {
+        if (h == 0) a.x[row0 + r] = xo + t_s[r];
+      } else {
+        // x_blk += K_blk t: thread (h, r) sums inputs [h, h + 1) * 128 / 4 of
+        // output row r; thread (0, r) adds the 4 partial sums
+        mbar_wait(kbar, j & 1);
+        const KT* kb = reinterpret_cast<const KT*>(kbuf);
+        T dx = T(0);
+#pragma unroll 8
+        for (int c = h * (kBlk / kSplit); c < (h + 1) * (kBlk / kSplit); ++c) {
+          dx += k_val(kb[c * kBlk + r]) * t_s[c];
+        }
+        part[threadIdx.x] = dx;
+        __syncthreads();
+        if (h == 0) {
+          T s = T(0);
+          for (int q = 0; q < kSplit; ++q) s += part[r + q * kBlk];
+          a.x[row0 + r] = xo + s;
+        }
+      }
+      // the next block reads the new rows; the K buffer and t are free
+      __syncthreads();
+      if constexpr (Mode != kNoDot) {
+        if (threadIdx.x == 0 && j + 1 < a.nblk) load_k(a, kbuf, kbar, next);
+      }
+      blk = next;
+    }
+  }
+}
+
+// kHoist's layout: two K tiles, then t of a group, then the partial sums
 template <typename T, typename KT>
+ChainLayout hoist_layout() {
+  ChainLayout L;
+  L.ebuf = L.ecols = 0;  // no ELL tile
+  L.t = 128u + 2u * kBlk * kBlk * sizeof(KT);
+  L.part = L.t + kGroup * kBlk * sizeof(T);
+  L.total = L.part + kThreads * sizeof(T);
+  return L;
+}
+
+// The ELL tile is taken where it fits beside the K tile in the card's
+// shared memory (f32 and bf16 K at the slice's widths, not f64), and where
+// the mode gathers one block at a time.
+template <typename T, typename KT, int Mode = kBase>
 int launch_chain(ChainArgs<T, KT> a, void* stream, int* info) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -338,8 +478,12 @@ int launch_chain(ChainArgs<T, KT> a, void* stream, int* info) {
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  a.ne = chain_layout<T, KT>(1, a.width).total <= static_cast<unsigned>(optin) ? 1 : 0;
-  a.L = chain_layout<T, KT>(a.ne, a.width);
+  if constexpr (Mode == kHoist || Mode == kNoGather) {
+    a.ne = 0;
+  } else {
+    a.ne = chain_layout<T, KT>(1, a.width).total <= static_cast<unsigned>(optin) ? 1 : 0;
+  }
+  a.L = Mode == kHoist ? hoist_layout<T, KT>() : chain_layout<T, KT>(a.ne, a.width);
   const unsigned bytes = a.L.total;
   if (bytes > static_cast<unsigned>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   if (info != nullptr) {
@@ -347,7 +491,7 @@ int launch_chain(ChainArgs<T, KT> a, void* stream, int* info) {
     info[1] = static_cast<int>(bytes);
   }
   if (a.nblk < 1) return static_cast<int>(cudaSuccess);
-  auto kern = storage_chain_kernel<T, KT>;
+  auto kern = storage_chain_kernel<T, KT, Mode>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -355,7 +499,7 @@ int launch_chain(ChainArgs<T, KT> a, void* stream, int* info) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename KT>
+template <typename T, typename KT, int Mode = kBase>
 int chain_entry(const T* vals, const int* cols, const int* lens, int width,
                 const T* b, const T* lagc, const T* xlag, const KT* kT,
                 const int* order, int nblk, T* x, void* stream, int* info) {
@@ -372,7 +516,7 @@ int chain_entry(const T* vals, const int* cols, const int* lens, int width,
   a.nblk = nblk;
   a.ne = 0;
   a.x = x;
-  return launch_chain<T, KT>(a, stream, info);
+  return launch_chain<T, KT, Mode>(a, stream, info);
 }
 
 }  // namespace
@@ -393,3 +537,33 @@ int chain_entry(const T* vals, const int* cols, const int* lens, int width,
 MMP_CHAIN_ENTRY(mmp_storage_chain_f32, float, float)
 MMP_CHAIN_ENTRY(mmp_storage_chain_f64, double, double)
 MMP_CHAIN_ENTRY(mmp_storage_chain_f32_bf16k, float, __nv_bfloat16)
+
+// The sweep probe's modes (f32, one CTA, storage order; mode a ChainMode):
+// kBase is the production f32 instance above.  Returns
+// cudaErrorInvalidValue for an unknown mode.
+extern "C" int mmp_chain_probe_f32(const float* vals, const int* cols,
+                                   const int* lens, int width, const float* b,
+                                   const float* lagc, const float* xlag,
+                                   const float* kT, const int* order, int nblk,
+                                   int mode, float* x, void* stream, int* info) {
+  switch (mode) {
+    case kBase:
+      return chain_entry<float, float, kBase>(vals, cols, lens, width, b, lagc,
+                                              xlag, kT, order, nblk, x, stream,
+                                              info);
+    case kHoist:
+      return chain_entry<float, float, kHoist>(vals, cols, lens, width, b,
+                                               lagc, xlag, kT, order, nblk, x,
+                                               stream, info);
+    case kNoDot:
+      return chain_entry<float, float, kNoDot>(vals, cols, lens, width, b,
+                                               lagc, xlag, kT, order, nblk, x,
+                                               stream, info);
+    case kNoGather:
+      return chain_entry<float, float, kNoGather>(vals, cols, lens, width, b,
+                                                  lagc, xlag, kT, order, nblk,
+                                                  x, stream, info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

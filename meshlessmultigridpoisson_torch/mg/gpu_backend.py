@@ -42,7 +42,9 @@ then the Lagrange-row relax, then the exact Neumann boundary-row re-solve,
 after every sweep; the same bordered matvec and RHS pushdown — in the
 kernels' precision (f32 by default; tight tolerances come from the f64
 outer loop of mg/mixed.py).  A smoother call on a ``sweep8``/``sweep7``
-level is one launch of ``ops.gpu_kernels.block_smooth``; other levels run
+level is one launch of ``ops.gpu_kernels.block_smooth``, the V-cycle's own
+re-solves of the fine level (and its Dirichlet pin) included when asked
+(``smooth(..., resolve_first=, resolve_last=)``); other levels run
 ``ops.gpu_kernels.smooth_loop``, which with the plain kernels is also the
 fused launch's plain version.  On CPU tensors the kernels' plain PyTorch
 versions run instead, so ``--device cpu`` exercises the identical flow.
@@ -310,7 +312,8 @@ def matvec(op: GpuLevel, x, x_lag):
 
 
 def bound_eval_neumann(op: GpuLevel, x, b):
-    """Re-solve the Neumann boundary rows; returns a new vector."""
+    """Re-solve the Neumann boundary rows (one ``compact_rows`` launch);
+    returns a new vector."""
     if op.bound.nrows == 0:
         return x
     return compact_rows(op.bound, x.clone(), b.contiguous())
@@ -324,19 +327,26 @@ def push_inhomog_to_rhs(op: GpuLevel, b):
     return compact_rows(op.cond, b, b)
 
 
-def smooth(op: GpuLevel, x, x_lag, b, b_lag, iters=None):
+def smooth(op: GpuLevel, x, x_lag, b, b_lag, iters=None, resolve_first: bool = False,
+           resolve_last: bool = False):
     """``iters`` sweeps, each: block GS (class SOR on a v2-fallback level)
     -> Lagrange-row relax -> Neumann row re-solve (reference
-    tpu_backend.smooth); returns new (x, x_lag).  A ``sweep8``/``sweep7``
-    level runs the whole call in one launch (``block_smooth``); other
-    levels the loop of sweep, relax and re-solve launches
-    (``smooth_loop``)."""
+    tpu_backend.smooth); returns new (x, x_lag).  ``resolve_first``: before
+    them the Neumann rows' re-solve, then the Dirichlet pin (the V-cycle's
+    start on the fine level); ``resolve_last``: one more re-solve after
+    them (the preconditioner's).  A ``sweep8``/``sweep7`` level runs the
+    whole call in one launch (``block_smooth``); other levels the loop of
+    sweep, relax and re-solve launches (``smooth_loop``)."""
     iters = op.iters if iters is None else iters
     x_lag = torch.as_tensor(x_lag, dtype=x.dtype, device=x.device)
     b_lag = torch.as_tensor(b_lag, dtype=x.dtype, device=x.device)
     b = b.contiguous()
     lag_row = op.lag_row if op.has_lagrange else None
     bound = op.bound if op.bound.nrows else None
+    ends = dict(start=(op.dirichlet_mask, op.dirichlet_values) if resolve_first else None,
+                resolve_last=resolve_last)
     if isinstance(op.sweep, BlockSweep) and op.sweep.role in FUSED_SWEEP_ROLES:
-        return block_smooth(op.sweep, x, x_lag, b, b_lag, iters, op.omega, lag_row, bound)
-    return smooth_loop(op.sweep, x, x_lag, b, b_lag, iters, op.omega, lag_row, bound)
+        return block_smooth(op.sweep, x, x_lag, b, b_lag, iters, op.omega, lag_row, bound,
+                            **ends)
+    return smooth_loop(op.sweep, x, x_lag, b, b_lag, iters, op.omega, lag_row, bound,
+                       **ends)

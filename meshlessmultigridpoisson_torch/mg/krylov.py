@@ -56,10 +56,10 @@ def _precond(hier0: Hierarchy, v, v_lag):
         b=tuple(v if i == fine_i else z[i] for i in range(len(z))),
         b_lag=tuple(v_lag if i == fine_i else zl[i] for i in range(len(z))),
     )
-    state, _ = v_cycle(hier0, state, residual=False)
-    op = hier0.levels[fine_i]
-    x = sm.bound_eval_neumann(op, state.x[fine_i], state.b[fine_i])
-    return x, state.x_lag[fine_i]
+    # the cycle's fine Neumann rows re-solved once more at its end, in its
+    # last fine smoother call
+    state, _ = v_cycle(hier0, state, residual=False, resolve_last=True)
+    return state.x[fine_i], state.x_lag[fine_i]
 
 
 def solve_bicgstab(

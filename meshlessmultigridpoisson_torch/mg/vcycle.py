@@ -9,7 +9,9 @@ CUDA kernel) for the transfers.
 
 Reference semantics per step (multigrid.cpp:62-110):
   * per cycle, the finest relative L1 residual is computed BEFORE any
-    smoothing (:66-69), then the fine Neumann rows re-solved;
+    smoothing (:66-69), then the fine Neumann rows re-solved (inside the
+    fine pre-smooth's call, ``smooth(..., resolve_first=True)``: one launch
+    with the smoother on a GPU level that fuses it);
   * descend: coarse values zeroed, Dirichlet pinned (g on fine, 0 coarse),
     pre-smooth, restrict the Dirichlet-zeroed residual, zero the restricted
     source at coarse Dirichlet points, zero Neumann slots + border slot
@@ -117,12 +119,16 @@ def mg_residual(hier: Hierarchy, state: MGState):
     )
 
 
-def v_cycle(hier: Hierarchy, state: MGState, residual: bool = True):
+def v_cycle(hier: Hierarchy, state: MGState, residual: bool = True,
+            resolve_last: bool = False):
     """One V-cycle; returns (new_state, pre-cycle finest relative residual).
 
     ``residual=False`` skips the (unused) residual when the cycle serves as
     a preconditioner — the JAX engine's compiler drops it there; an eager
     engine has to be told — and returns None in its place.
+    ``resolve_last`` re-solves the fine Neumann rows once more after the
+    last fine smooth, in that smoother call (``krylov._precond``'s
+    re-solve).
     """
     L = hier.num_levels
     fine = L - 1
@@ -130,22 +136,21 @@ def v_cycle(hier: Hierarchy, state: MGState, residual: bool = True):
 
     if L == 1:
         op = hier.levels[0]
-        x, xl = sm.smooth(op, state.x[0], state.x_lag[0], state.b[0], state.b_lag[0])
+        x, xl = sm.smooth(op, state.x[0], state.x_lag[0], state.b[0], state.b_lag[0],
+                          resolve_last=resolve_last)
         return state.replace_level(0, x=x, x_lag=xl), resid
-
-    op_f = hier.levels[fine]
-    xf = sm.bound_eval_neumann(op_f, state.x[fine], state.b[fine])
-    state = state.replace_level(fine, x=xf)
 
     # ---- descend ----
     for i in range(fine, 0, -1):
         op = hier.levels[i]
         x, xl, b, bl = state.x[i], state.x_lag[i], state.b[i], state.b_lag[i]
-        if i != fine:
+        if i == fine:  # re-solve the Neumann rows, pin, pre-smooth: one call
+            x, xl = sm.smooth(op, x, xl, b, bl, resolve_first=True)
+        else:
             x = torch.zeros_like(x)
             xl = torch.zeros_like(xl)
-        x = sm.apply_dirichlet(op, x, coarse=(i != fine))
-        x, xl = sm.smooth(op, x, xl, b, bl)
+            x = sm.apply_dirichlet(op, x, coarse=True)
+            x, xl = sm.smooth(op, x, xl, b, bl)
         r, _ = sm.residual(op, x, xl, b, bl)
 
         opc = hier.levels[i - 1]
@@ -173,7 +178,8 @@ def v_cycle(hier: Hierarchy, state: MGState, residual: bool = True):
         if not op.has_lagrange:
             corr = sm.zero_dirichlet(op, corr)
         x = state.x[i] + corr
-        x, xl = sm.smooth(op, x, state.x_lag[i], state.b[i], state.b_lag[i])
+        x, xl = sm.smooth(op, x, state.x_lag[i], state.b[i], state.b_lag[i],
+                          resolve_last=resolve_last and i == fine)
         state = state.replace_level(i, x=x, x_lag=xl)
 
     return state, resid

@@ -12,14 +12,17 @@ FractionalStepSim.cpp:201-204).  Precision split, as in the reference:
 * the PPE solve to the reference's 1e-10 relative-L1 bar runs through
   ``mg/mixed.solve_mixed``: exact f64 outer residuals on the matrix-free
   compatible div o grad operator (``_mv64``: f64 ``ell_spmv`` plus the f64
-  ``compact_rows`` scatter) with the f32 GpuLevel hierarchy + the f32
-  compatible matvec (``_mv32``) as the inner defect solver, warm-started
-  from the previous step's pressure.
+  ``ppe_tail``) with the f32 GpuLevel hierarchy + the f32 compatible
+  matvec (``_mv32``) as the inner defect solver, warm-started from the
+  previous step's pressure.
 
 The Neumann rows of the compatible matvec are the fine level's compact
-boundary table; ``compact_rows`` role ``ppe2`` scatters their products into
-the matvec (the reference's ``spmv_tpu2`` + ``.at[rows].set``).  The ppe2
-tables share their tensors with the levels' ``bound2`` tables.
+boundary table.  After the matvec's four SpMVs, one ``ppe_tail`` launch
+(role ``ppe2``) sums them, scatters the boundary rows' products over the
+sum (the reference's ``spmv_tpu2`` + ``.at[rows].set``), keeps x on the
+identity rows and adds the Lagrange column.  Its tables share their
+tensors with the levels' ``bound2`` tables; the row -> boundary-row map is
+made here, at repack.
 
 On CPU tensors every kernel wrapper takes its plain PyTorch version, so
 ``device="cpu"`` runs the identical flow.  The time loop is a host loop:
@@ -48,11 +51,12 @@ from meshlessmultigridpoisson_torch.models.fracstep import (
     u_error_vs_kovasznay,
 )
 from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
-    DeviceCompact,
     DeviceEll,
-    compact_rows,
+    PpeTail,
     device_ell,
     ell_spmv,
+    ppe_tail,
+    ppe_tail_table,
 )
 
 
@@ -67,8 +71,8 @@ class GpuFracStep:
     lap32: DeviceEll
     dx64: DeviceEll  # f64 (outer compatible matvec)
     dy64: DeviceEll
-    ppe32: DeviceCompact  # fine Neumann rows, role ppe2, f32
-    ppe64: DeviceCompact  # the same rows, f64
+    ppe32: PpeTail  # the compatible matvec's tail over the fine Neumann rows, f32
+    ppe64: PpeTail  # the same, f64
     bmask: torch.Tensor  # [n_pad] f64
     u_bc: torch.Tensor
     v_bc: torch.Tensor
@@ -101,6 +105,10 @@ def build_gpu_fracstep(prob: FracStepProblem, device) -> GpuFracStep:
     def f64(v):
         return v.to(device=device, dtype=torch.float64).contiguous()
 
+    def tail(top: GpuLevel):
+        return ppe_tail_table(top.bound, (top.smooth_mask + top.neumann_mask) > 0,
+                              top.lag_col)
+
     return GpuFracStep(
         hd=hd,
         op64=op64,
@@ -109,8 +117,8 @@ def build_gpu_fracstep(prob: FracStepProblem, device) -> GpuFracStep:
         lap32=ell(prob.lap, torch.float32),
         dx64=ell(prob.dx, torch.float64),
         dy64=ell(prob.dy, torch.float64),
-        ppe32=dataclasses.replace(hd.levels[-1].bound, role="ppe2"),
-        ppe64=dataclasses.replace(op64.bound, role="ppe2"),
+        ppe32=tail(hd.levels[-1]),
+        ppe64=tail(op64),
         bmask=f64(prob.bmask),
         u_bc=f64(prob.u_bc),
         v_bc=f64(prob.v_bc),
@@ -121,17 +129,15 @@ def build_gpu_fracstep(prob: FracStepProblem, device) -> GpuFracStep:
     )
 
 
-def _compatible(top: GpuLevel, dx: DeviceEll, dy: DeviceEll, ppe: DeviceCompact):
+def _compatible(top: GpuLevel, dx: DeviceEll, dy: DeviceEll, tail: PpeTail):
     """Bordered compatible PPE matvec (models/fracstep.make_compatible_matvec)
-    on the kernel operators: four SpMVs, the Neumann rows' scatter, the
-    identity on padding rows, the Lagrange border."""
-    live = (top.smooth_mask + top.neumann_mask) > 0
+    on the kernel operators: four SpMVs, then one ``ppe_tail`` launch (the
+    Neumann rows' scatter, the identity on padding rows, the Lagrange
+    column), and the border row."""
 
     def mv(x, xl):
-        y = ell_spmv(dx, ell_spmv(dx, x)) + ell_spmv(dy, ell_spmv(dy, x))
-        y = compact_rows(ppe, x, y)
-        y = torch.where(live, y, x)
-        y = y + top.lag_col * xl
+        y = ppe_tail(tail, ell_spmv(dx, ell_spmv(dx, x)), ell_spmv(dy, ell_spmv(dy, x)),
+                     x, xl)
         return y, (top.lag_row * x).sum() + xl  # product + sum: no cuBLAS
 
     return mv

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Ten kernels (seven sources in ``meshlessmultigridpoisson_torch/csrc/``)
+Eleven kernels (seven sources in ``meshlessmultigridpoisson_torch/csrc/``)
 replace fourteen Pallas TPU kernels of the reference package and eight of
 its timing probes:
 
@@ -37,12 +37,21 @@ CUDA kernel (role counter)         TPU kernel it replaces
                                    color (timing only: the bench and
                                    ``chip_smoke.py``)
 ``compact_rows`` (``bound2``)      ops/kernels.py ``spmv_tpu2``: Neumann
-                                   boundary-row re-solve after every sweep
+                                   boundary-row re-solve where no fused
+                                   smoother launch holds it (a Krylov or
+                                   outer solve's last; the V-cycle's on a
+                                   ``smooth_loop`` level), rows read to
+                                   ``lens``
 ``compact_rows`` (``push2``)       ops/kernels.py ``spmv_tpu2``: condensation
                                    pushdown of the right-hand side
-``compact_rows`` (``ppe2``)        ops/kernels.py ``spmv_tpu2``: the compatible
+``ppe_tail`` (``ppe2``)            ops/kernels.py ``spmv_tpu2``: the compatible
                                    NS pressure matvec's Neumann rows
-                                   (models/fracstep_tpu.py ``_mv32``)
+                                   (models/fracstep_tpu.py ``_mv32``) and the
+                                   rest of the matvec after its SpMVs, one
+                                   launch (``csrc/compact_rows.cu``)
+``compact_rows``                   the parent design of ``ppe2``: the rows'
+(``ppe2_scatter``)                 scatter alone, the rest in separate
+                                   launches (``ppe_tail_loop``; timing only)
 ``stream_ceiling`` (``stream14``)  bench.py:118 ``stream_ceiling``: the
                                    kernel bench's device-memory stream probe
 ``class_sor_sweep`` (``sweep2``)   ops/kernels.py:586 ``sor_sweep_tpu2``: the
@@ -70,11 +79,11 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``class_sor_sweep`` (``sweep1``)   ops/kernels.py:303 ``sor_sweep_tpu``: the
                                    v1 (block, class) GS, kernel 7's function
                                    (``probes.kexp``)
-``block_oneshot_sweep``            scripts/ksweepprobe.py:110
+``storage_chain``                  scripts/ksweepprobe.py:110
 (``probe_base``, ``probe_hoist``,  ``make_sweep_variant``: the
-``probe_nodot``,                   storage-order sweep and its timing-only
-``probe_nogather``)                variants (``sweep_probe``;
-                                   ``probes.ksweepprobe``)
+``probe_nodot``,                   storage-order sweep (``sweep6``'s f32
+``probe_nogather``)                instance) and its timing-only variants
+                                   (``sweep_probe``; ``probes.ksweepprobe``)
 ``stream_ceiling``                 scripts/kstream.py:61 ``make_stream``: the
 (``kstream_f32i32``,               stream over four table mixes
 ``kstream_f32f32``,                (``stream_probe``; ``probes.kstream``)
@@ -103,11 +112,12 @@ passes (``kiso8_mxu``,             sums by the MXU at HIGHEST / DEFAULT,
 
 The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
 all its roles.  A smoother call (``mg.gpu_backend.smooth``: ``iters``
-sweeps, each followed by the Lagrange relax and the Neumann re-solve) on a
-``sweep8`` or ``sweep7`` level is one launch of ``block_smooth``; its plain
-version is ``smooth_loop`` over the plain kernels, the loop of separate
-launches that still runs ``sweep6`` (one ``storage_chain`` launch a sweep)
-and the class sweeps.
+sweeps, each followed by the Lagrange relax and the Neumann re-solve; on
+request the V-cycle's re-solve and Dirichlet pin before the first sweep
+and one more re-solve after the last) on a ``sweep8`` or ``sweep7`` level
+is one launch of ``block_smooth``; its plain version is ``smooth_loop``
+over the plain kernels, the loop of separate launches that still runs
+``sweep6`` (one ``storage_chain`` launch a sweep) and the class sweeps.
 
 ``ell_spmv`` reads each row only to ``DeviceEll.lens`` (one past its last
 nonzero); a table no sweep reads (the transfers, the f64 outer operator)
@@ -169,7 +179,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "sweep8_percolor": 0, "spmv_rowwarp": 0, "sweep6_chain": 0,
-          "bound2": 0, "push2": 0, "ppe2": 0, "stream14": 0, "sweep2": 0,
+          "bound2": 0, "push2": 0, "ppe2": 0, "ppe2_scatter": 0, "stream14": 0,
+          "sweep2": 0,
           "sweep2_tilewalk": 0,
           "sweep4": 0, "spmv2": 0, "spmv4": 0, "sweep5": 0, "spmv1": 0,
           "spmv3": 0, "sweep1": 0, "probe_base": 0, "probe_hoist": 0,
@@ -284,7 +295,11 @@ def _load():
             for name in ("mmp_compact_rows_f32", "mmp_compact_rows_f64"):
                 fn = getattr(lib, name)
                 fn.restype = i
-                fn.argtypes = [p, p, i, i, p, p, i, p, p, p, i, p]
+                fn.argtypes = [p, p, p, i, i, p, p, i, p, p, p, i, p]
+            for name in ("mmp_ppe_tail_f32", "mmp_ppe_tail_f64"):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [p, p, p, i, i, p, p, p, p, p, p, p, p, p, i, p]
             lib.mmp_stream_probe.restype = i
             lib.mmp_stream_probe.argtypes = [p, p, i, i, i, i, p,
                                              ctypes.POINTER(i), p]
@@ -298,10 +313,11 @@ def _load():
                 fn.restype = i
                 fn.argtypes = [i, p, p, p, p, p, i, i, i, p, p, p, p, p, i, i, i,
                                ctypes.c_double,
-                               p, p, p, p, p, p, p, p, i, i, p, p, p, p,
-                               ctypes.POINTER(i)]
-            lib.mmp_sweep_probe_f32.restype = i
-            lib.mmp_sweep_probe_f32.argtypes = [p, p, i, p, p, p, p, p, i, i, p, p]
+                               p, p, p, p, p, p, p, p, p, i, i, p, p, i, i, p, p, p,
+                               p, ctypes.POINTER(i)]
+            lib.mmp_chain_probe_f32.restype = i
+            lib.mmp_chain_probe_f32.argtypes = [p, p, p, i, p, p, p, p, p, i, i, p, p,
+                                                ctypes.POINTER(i)]
             for name in ("mmp_class_sweep_f32", "mmp_class_sweep_f64"):
                 fn = getattr(lib, name)
                 fn.restype = i
@@ -1019,47 +1035,64 @@ def _phase_ptr(ptr: tuple, device: torch.device) -> torch.Tensor:
 
 
 def smooth_loop(sw, x, x_lag, b, b_lag, iters: int, omega: float = 1.0, lag_row=None,
-                bound: DeviceCompact | None = None, plain: bool = False):
+                bound: DeviceCompact | None = None, plain: bool = False, start=None,
+                resolve_last: bool = False):
     """``iters`` times: one sweep (``block_oneshot_sweep``, or
     ``class_sor_sweep`` for a ClassSweep), then, given ``lag_row``, the
     Lagrange relax x_lag = (1 - omega) x_lag + omega (b_lag - lag_row . x),
     then, given a non-empty "bound2" table, the boundary re-solve
     (``compact_rows``): the reference's ``tpu_backend.smooth`` scan as a
-    loop of launches, on a copy of ``x``.  Returns (x, x_lag).  ``plain``
-    runs the kernels' plain versions: the plain version of ``block_smooth``."""
+    loop of launches, on a copy of ``x``.  Given ``start`` (mask, values),
+    before the first sweep the boundary rows are re-solved, then x = values
+    where mask > 0 (the V-cycle's start: the re-solve, then
+    ``apply_dirichlet``); given ``resolve_last``, after the last they are
+    re-solved once more (the preconditioner's); each a launch of its own.
+    Returns (x, x_lag).  ``plain`` runs the kernels' plain versions: the
+    plain version of ``block_smooth``."""
     if isinstance(sw, ClassSweep):
         sweep = class_sor_sweep_plain if plain else class_sor_sweep
     else:
         sweep = block_oneshot_sweep_plain if plain else block_oneshot_sweep
     resolve = compact_rows_plain if plain else compact_rows
+    rows = bound is not None and bound.nrows > 0
     x = x.clone()
+    if start is not None:
+        if rows:
+            resolve(bound, x, b)
+        x = torch.where(start[0] > 0, start[1], x)
     for _ in range(iters):
         sweep(sw, x, x_lag, b)
         if lag_row is not None:
             # border row: A_NN = 1 (grid.cpp:573); an elementwise product
             # and a sum, no cuBLAS
             x_lag = (1.0 - omega) * x_lag + omega * (b_lag - (lag_row * x).sum())
-        if bound is not None and bound.nrows:
+        if rows:
             resolve(bound, x, b)
+    if resolve_last and rows:
+        resolve(bound, x, b)
     return x, x_lag
 
 
 def block_smooth_plain(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
-                       omega: float = 1.0, lag_row=None, bound=None):
+                       omega: float = 1.0, lag_row=None, bound=None, start=None,
+                       resolve_last: bool = False):
     """Plain version of ``block_smooth``: ``smooth_loop`` over the plain
-    sweep, relax and re-solve; returns new (x, x_lag)."""
-    return smooth_loop(sw, x, x_lag, b, b_lag, iters, omega, lag_row, bound, plain=True)
+    sweep, relax and re-solves; returns new (x, x_lag)."""
+    return smooth_loop(sw, x, x_lag, b, b_lag, iters, omega, lag_row, bound, plain=True,
+                       start=start, resolve_last=resolve_last)
 
 
 def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
                  omega: float = 1.0, lag_row=None, bound: DeviceCompact | None = None,
-                 inplace: bool = False):
+                 inplace: bool = False, start=None, resolve_last: bool = False):
     """``iters`` x (sweep, Lagrange relax given ``lag_row``, boundary
     re-solve given a non-empty "bound2" table) in ONE launch of the fused
     kernel of ``sw.role`` ("sweep8": colored_smooth, "sweep7":
-    coarse_smooth); counted once.  Returns new (x, x_lag); ``inplace``
-    (the one-sweep call of ``block_oneshot_sweep``, no relax) updates ``x``
-    and returns (x, None).  CPU tensors: ``block_smooth_plain``."""
+    coarse_smooth); counted once.  ``start`` and ``resolve_last`` as in
+    ``smooth_loop``, inside the same launch.
+    Returns new (x, x_lag); ``inplace`` (the one-sweep call of
+    ``block_oneshot_sweep``, no relax) updates ``x`` and returns (x,
+    None).  CPU tensors: ``block_smooth_plain``."""
     if sw.role not in FUSED_SWEEP_ROLES:
         raise ValueError(f"block_smooth takes roles {sorted(FUSED_SWEEP_ROLES)}, "
                          f"not {sw.role!r}")
@@ -1067,12 +1100,14 @@ def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
         raise ValueError(f"block_smooth re-solves a bound2 table, not {bound.role!r}")
     if bound is not None and not bound.nrows:
         bound = None
-    if iters < 1 or (inplace and (lag_row is not None or bound is not None or iters != 1)):
+    if iters < 1 or (inplace and (lag_row is not None or bound is not None or iters != 1
+                                  or start is not None or resolve_last)):
         raise ValueError("block_smooth: iters >= 1; in place only one bare sweep")
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         if inplace:
             return block_oneshot_sweep_plain(sw, x, x_lag, b), None
-        return block_smooth_plain(sw, x, x_lag, b, b_lag, iters, omega, lag_row, bound)
+        return block_smooth_plain(sw, x, x_lag, b, b_lag, iters, omega, lag_row, bound,
+                                  start, resolve_last)
     dev, dt, kdt = _check_block_sweep(sw, x, b, "block_smooth")
     n_pad, nb = sw.A.nrows_pad, sw.A.nrows_pad // LANES
     for name, t in (("kT", sw.kT), ("vals", sw.A.vals), ("cols", sw.A.cols)):
@@ -1107,10 +1142,14 @@ def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
     if bound is not None:
         _check("bound vals", bound.vals, dev, dt)
         _check("bound cols", bound.cols, dev, torch.int32, bound.vals.shape)
+        _check("bound lens", bound.lens, dev, torch.int32, (m,))
         _check("bound rows", bound.rows, dev, torch.int32, (m,))
         _check("bound diag", bound.diag, dev, dt, (m,))
         if bound.n_pad != n_pad:
             raise ValueError(f"bound table reads {bound.n_pad} rows, the level has {n_pad}")
+    if start is not None:
+        _check("start mask", start[0], dev, dt, (n_pad,))
+        _check("start values", start[1], dev, dt, (n_pad,))
     ptr = _phase_ptr(sw.phase_ptr, dev)
     max_phase = max(b - a for a, b in zip(sw.phase_ptr, sw.phase_ptr[1:]))
     x_out = x if inplace else torch.empty_like(x)
@@ -1130,9 +1169,12 @@ def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
                sw.order.data_ptr(), ptr.data_ptr(), sw.nphases, max_phase, iters,
                float(omega), ptr_of(lag_row), None if lag_row is None else bl.data_ptr(),
                xl.data_ptr(), ptr_of(xl_out),
-               *((bound.vals.data_ptr(), bound.cols.data_ptr(), bound.rows.data_ptr(),
-                  bound.diag.data_ptr(), bound.width, m) if bound is not None
-                 else (None, None, None, None, 0, 0)),
+               *((bound.vals.data_ptr(), bound.cols.data_ptr(), bound.lens.data_ptr(),
+                  bound.rows.data_ptr(), bound.diag.data_ptr(), bound.width, m)
+                 if bound is not None else (None, None, None, None, None, 0, 0)),
+               *((start[0].data_ptr(), start[1].data_ptr()) if start is not None
+                 else (None, None)),
+               int(start is not None), int(resolve_last),
                x.data_ptr(), x_out.data_ptr(), ptr_of(partials),
                torch.cuda.current_stream(dev).cuda_stream, info, sweeps=iters)
     _launch_ok(rc, f"block_smooth {sw.role}")
@@ -1142,9 +1184,10 @@ def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
 
 
 # The timing-only variants of the storage-order chain (the reference's
-# scripts/ksweepprobe.py make_sweep_variant), by role: the kernel's
-# compile-time mode.  Only "probe_base" computes the sweep; the others
-# compute other functions and never reach a solve.
+# scripts/ksweepprobe.py make_sweep_variant), by role: storage_chain.cu's
+# compile-time mode.  "probe_base" is the production f32 instance (role
+# "sweep6"'s kernel) and computes the sweep; the others compute other
+# functions and never reach a solve.
 PROBE_MODES = {"probe_base": 0, "probe_hoist": 1, "probe_nodot": 2,
                "probe_nogather": 3}
 PROBE_GROUP = 8  # blocks per "probe_hoist" group (the reference's MB)
@@ -1175,11 +1218,11 @@ def sweep_probe_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
 
 
 def sweep_probe(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
-    """One launch of a probe mode (``sw.role``) of ``block_oneshot_sweep``:
-    f32, one serial phase over every block (``sw.order``), one CTA; ``x``
-    in place.
-    Timing only: the modes other than "probe_base" compute other
-    functions."""
+    """One launch of a probe mode (``sw.role``) of ``storage_chain``: f32,
+    one serial phase over every block (``sw.order``), one CTA, each row
+    read to ``lens``; ``x`` in place.  "probe_base" launches the production
+    f32 instance itself.  Timing only: the modes other than "probe_base"
+    compute other functions."""
     nb = sw.A.nrows_pad // LANES
     if sw.role not in PROBE_MODES:
         raise ValueError(f"{sw.role!r} is not a probe role")
@@ -1198,12 +1241,18 @@ def sweep_probe(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     _check("order", sw.order, dev, torch.int32, (nb,))
     _check("x", x, dev, f32, (sw.A.nrows_pad,))
     _check("b", b, dev, f32, (sw.A.nrows_pad,))
+    if sw.A.lens is None:
+        raise ValueError("sweep_probe needs the rows' lens (device_ell builds them)")
+    for name, t in (("kT", sw.kT), ("vals", sw.A.vals), ("cols", sw.A.cols)):
+        if t.data_ptr() % 16:  # cp.async.bulk copies 16-byte-aligned tiles
+            raise ValueError(f"sweep_probe: {name} is not 16-byte aligned")
     xl = torch.as_tensor(x_lag, dtype=f32, device=dev).reshape(())
-    rc = _load().mmp_sweep_probe_f32(
-        sw.A.vals.data_ptr(), sw.A.cols.data_ptr(), sw.A.width, b.data_ptr(),
-        sw.lagc.data_ptr(), xl.data_ptr(), sw.kT.data_ptr(), sw.order.data_ptr(),
-        nb, PROBE_MODES[sw.role], x.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _launch_ok(rc, "block_oneshot_sweep probe")
+    rc = _load().mmp_chain_probe_f32(
+        sw.A.vals.data_ptr(), sw.A.cols.data_ptr(), sw.A.lens.data_ptr(), sw.A.width,
+        b.data_ptr(), sw.lagc.data_ptr(), xl.data_ptr(), sw.kT.data_ptr(),
+        sw.order.data_ptr(), nb, PROBE_MODES[sw.role], x.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, None)
+    _launch_ok(rc, "storage_chain probe")
     COUNTS[sw.role] += 1
     return x
 
@@ -1383,17 +1432,19 @@ def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # the epilogue each role runs (the kernel's ``mode`` argument)
-_COMPACT_MODE = {"bound2": 0, "push2": 1, "ppe2": 2}
+_COMPACT_MODE = {"bound2": 0, "push2": 1, "ppe2_scatter": 2}
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceCompact:
     """A compact table of rows of a big operator (``CompactRows``), on a
-    device: row-major ELL with global int32 columns, the target row of each
-    compact row in the big row space (padding slots: ``>= n_pad``) and the
-    big matrix's diagonal there.  ``role``: "bound2" (Neumann re-solve),
-    "push2" (condensation pushdown) or "ppe2" (scatter of the rows'
-    products, the compatible PPE matvec)."""
+    device: row-major ELL with global int32 columns, each row's ``lens``
+    (one past its last nonzero, where the kernels stop reading it), the
+    target row of each compact row in the big row space (padding slots:
+    ``>= n_pad``) and the big matrix's diagonal there.  ``role``: "bound2"
+    (Neumann re-solve), "push2" (condensation pushdown), "ppe2" (the
+    compatible PPE matvec's tail, ``ppe_tail``) or "ppe2_scatter" (the
+    scatter of the rows' products alone, its parent design)."""
 
     vals: torch.Tensor  # [m_pad, width]
     cols: torch.Tensor  # [m_pad, width] int32
@@ -1402,6 +1453,11 @@ class DeviceCompact:
     nrows: int  # true m (0: an empty table, nothing to launch)
     n_pad: int  # length of the vectors it reads and writes
     role: str
+    lens: torch.Tensor | None = None  # [m_pad] int32; None: made from vals
+
+    def __post_init__(self):
+        if self.lens is None:
+            object.__setattr__(self, "lens", row_lens(self.vals).contiguous())
 
     @property
     def m_pad(self) -> int:
@@ -1414,7 +1470,7 @@ class DeviceCompact:
 
 def device_compact(c, dtype, device, role: str) -> DeviceCompact:
     """Repack a host ``CompactRows`` (stencil/operators.py) for the kernel."""
-    if role not in _COMPACT_MODE:
+    if role not in _COMPACT_MODE and role != "ppe2":
         raise ValueError(f"unknown compact-row role {role!r}")
     return DeviceCompact(
         vals=c.ell.vals.to(device=device, dtype=dtype).contiguous(),
@@ -1427,10 +1483,18 @@ def device_compact(c, dtype, device, role: str) -> DeviceCompact:
     )
 
 
+def _compact_sum_plain(C: DeviceCompact, x: torch.Tensor) -> torch.Tensor:
+    """(C x)_i over entries [0, lens[i]) of each row, in the full-width
+    gather-sum's order (what lies past lens is zero)."""
+    k = torch.arange(C.width, device=C.vals.device)
+    prod = C.vals * x[C.cols.long()]
+    return torch.where(k < C.lens[:, None], prod, 0).sum(dim=1)
+
+
 def compact_rows_plain(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor):
-    """Plain version of ``compact_rows``: gather-sum, then the role's
-    epilogue through index ops (sentinel rows dropped)."""
-    y = ell_spmv_plain(C.vals, C.cols, x)
+    """Plain version of ``compact_rows``: gather-sum to ``lens``, then the
+    role's epilogue through index ops (sentinel rows dropped)."""
+    y = _compact_sum_plain(C, x)
     rows = C.rows.long()
     keep = rows < C.n_pad
     r = rows[keep]
@@ -1438,7 +1502,7 @@ def compact_rows_plain(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor):
         d = C.diag[keep]
         x[r] = (b[r] - (y[keep] - d * x[r])) / d
         return x
-    if C.role == "ppe2":
+    if C.role == "ppe2_scatter":
         b[r] = y[keep]
         return b
     out = b.clone()
@@ -1446,30 +1510,38 @@ def compact_rows_plain(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor):
     return out
 
 
+def _compact_tables_ok(C: DeviceCompact, dev, dt, what: str) -> None:
+    if dev.type != "cuda" or dt not in _SUFFIX:
+        raise ValueError(f"{what} takes f32/f64 CUDA tensors, got {dt} on {dev}")
+    _check("cols", C.cols, dev, torch.int32, C.vals.shape)
+    _check("vals", C.vals, dev)
+    _check("lens", C.lens, dev, torch.int32, (C.m_pad,))
+    _check("rows", C.rows, dev, torch.int32, (C.m_pad,))
+    _check("diag", C.diag, dev, dt, (C.m_pad,))
+
+
 def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The table's epilogue over y = C x.
+    """The table's epilogue over y = C x, each row read to ``lens``.
 
     "bound2": re-solve each target row for its own unknown, IN PLACE on
     ``x``; returns ``x``.  "push2": returns a new vector, ``b`` with
     ``b[r] - (C x)_i`` at the target rows (callers pass ``x = b``).
-    "ppe2": writes ``(C x)_i`` into ``b[r]`` IN PLACE (``b`` is the
+    "ppe2_scatter": writes ``(C x)_i`` into ``b[r]`` IN PLACE (``b`` is the
     matvec's output, never ``x``) and returns ``b``.
     An empty table (``nrows == 0``) launches nothing.
     """
+    if C.role not in _COMPACT_MODE:
+        raise ValueError(f"compact_rows runs roles {sorted(_COMPACT_MODE)}, not "
+                         f"{C.role!r} (ppe_tail runs role ppe2)")
     if x.device.type == "cpu" and C.vals.device.type == "cpu":
         return compact_rows_plain(C, x, b)
     dev, dt = C.vals.device, C.vals.dtype
-    if dev.type != "cuda" or dt not in _SUFFIX:
-        raise ValueError(f"compact_rows takes f32/f64 CUDA tensors, got {dt} on {dev}")
-    _check("cols", C.cols, dev, torch.int32, C.vals.shape)
-    _check("vals", C.vals, dev)
-    _check("rows", C.rows, dev, torch.int32, (C.m_pad,))
-    _check("diag", C.diag, dev, dt, (C.m_pad,))
+    _compact_tables_ok(C, dev, dt, "compact_rows")
     _check("x", x, dev, dt, (C.n_pad,))
     _check("b", b, dev, dt, (C.n_pad,))
     mode = _COMPACT_MODE[C.role]
     if mode == 2 and x.data_ptr() == b.data_ptr():
-        raise ValueError("compact_rows ppe2: the output must not alias x")
+        raise ValueError("compact_rows ppe2_scatter: the output must not alias x")
     out = b.clone() if mode == 1 else (x if mode == 0 else b)
     if C.nrows == 0:
         return out
@@ -1477,12 +1549,82 @@ def compact_rows(C: DeviceCompact, x: torch.Tensor, b: torch.Tensor) -> torch.Te
     # the scatter reads no b: hand it x, so no read pointer aliases out
     b_in = x if mode == 2 else b
     rc = _call(C.role, C.m_pad, C.n_pad, fn, C.vals.data_ptr(), C.cols.data_ptr(),
-               C.width, C.m_pad, C.rows.data_ptr(), C.diag.data_ptr(), C.n_pad,
-               x.data_ptr(), b_in.data_ptr(), out.data_ptr(), mode,
+               C.lens.data_ptr(), C.width, C.m_pad, C.rows.data_ptr(), C.diag.data_ptr(),
+               C.n_pad, x.data_ptr(), b_in.data_ptr(), out.data_ptr(), mode,
                torch.cuda.current_stream(dev).cuda_stream)
     _launch_ok(rc, "compact_rows")
     COUNTS[C.role] += 1
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class PpeTail:
+    """What the compatible PPE matvec does after its four SpMVs, as
+    ``ppe_tail`` takes it: the fine level's boundary rows ``C`` (role
+    "ppe2"), ``slot[r]`` the compact row whose target is row r (-1: none),
+    the rows ``live`` (smoothed or Neumann; the others are identity rows)
+    and the Lagrange column.  ``ppe_tail_table`` makes it."""
+
+    C: DeviceCompact
+    slot: torch.Tensor  # [n_pad] int32
+    live: torch.Tensor  # [n_pad] bool
+    lag_col: torch.Tensor  # [n_pad]
+
+    @functools.cached_property
+    def scatter(self) -> DeviceCompact:
+        """``C`` as the parent design's standalone scatter ("ppe2_scatter")."""
+        return dataclasses.replace(self.C, role="ppe2_scatter")
+
+
+def ppe_tail_table(C: DeviceCompact, live: torch.Tensor, lag_col: torch.Tensor) -> PpeTail:
+    """The tail of the compatible matvec over boundary table ``C`` (its
+    tensors shared), the row -> compact-row map made on the host."""
+    rows = C.rows.cpu().long()
+    i = torch.nonzero((rows >= 0) & (rows < C.n_pad)).flatten()
+    slot = torch.full((C.n_pad,), -1, dtype=torch.int32)
+    slot[rows[i]] = i.to(torch.int32)
+    return PpeTail(C=dataclasses.replace(C, role="ppe2"),
+                   slot=slot.to(C.rows.device), live=live.contiguous(),
+                   lag_col=lag_col.contiguous())
+
+
+def ppe_tail_loop(T: PpeTail, p, q, x, x_lag, plain: bool = False) -> torch.Tensor:
+    """y = p + q, the boundary rows' products scattered over it
+    (``compact_rows`` "ppe2_scatter"), x on the rows not ``live``, plus
+    ``lag_col`` x_lag: the matvec's tail as separate launches (the parent
+    design; ``plain``: the plain scatter, the plain version of
+    ``ppe_tail``)."""
+    y = p + q
+    y = (compact_rows_plain if plain else compact_rows)(T.scatter, x, y)
+    y = torch.where(T.live, y, x)
+    return y + T.lag_col * x_lag
+
+
+def ppe_tail(T: PpeTail, p, q, x, x_lag) -> torch.Tensor:
+    """The compatible PPE matvec's tail (``ppe_tail_loop``'s function) in
+    ONE launch of ``csrc/compact_rows.cu``'s ``ppe_tail`` (role "ppe2"):
+    p = dx(dx x) and q = dy(dy x) from the SpMVs, ``x_lag`` a scalar
+    tensor; returns a new y.  CPU tensors: the plain version."""
+    if x.device.type == "cpu" and T.C.vals.device.type == "cpu":
+        return ppe_tail_loop(T, p, q, x, x_lag, plain=True)
+    C = T.C
+    dev, dt = C.vals.device, C.vals.dtype
+    _compact_tables_ok(C, dev, dt, "ppe_tail")
+    n = C.n_pad
+    for name, t in (("p", p), ("q", q), ("x", x), ("lag_col", T.lag_col)):
+        _check(name, t, dev, dt, (n,))
+    _check("slot", T.slot, dev, torch.int32, (n,))
+    _check("live", T.live, dev, torch.bool, (n,))
+    xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
+    y = torch.empty_like(x)
+    fn = getattr(_load(), f"mmp_ppe_tail_{_SUFFIX[dt]}")
+    rc = _call("ppe2", n, n, fn, C.vals.data_ptr(), C.cols.data_ptr(), C.lens.data_ptr(),
+               C.width, C.m_pad, C.rows.data_ptr(), T.slot.data_ptr(), T.live.data_ptr(),
+               T.lag_col.data_ptr(), xl.data_ptr(), p.data_ptr(), q.data_ptr(),
+               x.data_ptr(), y.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    _launch_ok(rc, "ppe_tail")
+    COUNTS["ppe2"] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -103,15 +103,24 @@ def _gs_sweep(op: LevelOperator, x: torch.Tensor, x_lag, b: torch.Tensor):
     return torch.from_numpy(xn)
 
 
-def smooth(op, x: torch.Tensor, x_lag, b: torch.Tensor, b_lag, iters: int | None = None):
+def smooth(op, x: torch.Tensor, x_lag, b: torch.Tensor, b_lag, iters: int | None = None,
+           resolve_first: bool = False, resolve_last: bool = False):
     """``iters`` SOR sweeps (reference sor(), grid.cpp:104-146).
 
     Each sweep: exact (block, class)-ordered SOR over the interior mask ->
     Lagrange-row relax -> Neumann boundary row solve (grid.cpp:144).
+    ``resolve_first``: before the sweeps, the Neumann rows' solve, then the
+    fine Dirichlet pin (the V-cycle's start, multigrid.cpp:66-73);
+    ``resolve_last``: one more Neumann rows' solve after them (the
+    preconditioner's).  On a GpuLevel both run in the smoother's own launch
+    where it has one.
     """
     be = _gpu(op)
     if be is not None:
-        return be.smooth(op, x, x_lag, b, b_lag, iters)
+        return be.smooth(op, x, x_lag, b, b_lag, iters, resolve_first=resolve_first,
+                         resolve_last=resolve_last)
+    if resolve_first:
+        x = apply_dirichlet(op, bound_eval_neumann(op, x, b), coarse=False)
     iters = op.iters if iters is None else iters
     w = op.omega
     for _ in range(iters):
@@ -119,6 +128,8 @@ def smooth(op, x: torch.Tensor, x_lag, b: torch.Tensor, b_lag, iters: int | None
         if op.has_lagrange:
             # border row: A_NN = 1 (grid.cpp:573)
             x_lag = (1.0 - w) * x_lag + w * (b_lag - torch.dot(op.lag_row, x))
+        x = bound_eval_neumann(op, x, b)
+    if resolve_last:
         x = bound_eval_neumann(op, x, b)
     return x, x_lag
 

@@ -2,19 +2,23 @@
 
     python -m meshlessmultigridpoisson_torch.probes.ksweepprobe [iters]
 
-Port of the reference package's ``scripts/ksweepprobe.py``.  One step of
-the storage-order chain (``block_oneshot_sweep`` on one CTA: gather and
-row sums of a 128-row block, barrier, the 128 x 128 K product, barrier)
-is split by timing variants of the kernel (``gpu_kernels.sweep_probe``),
-each of which drops one part:
+Port of the reference package's ``scripts/ksweepprobe.py``.  One link of
+the production storage-order chain (``storage_chain``, role ``sweep6``:
+the gather and row sums of a 128-row block against x, its ELL rows staged
+in shared memory ahead, barrier, the 128 x 128 K product from the staged K
+tile, barrier) is split by compile-time variants of that kernel
+(``gpu_kernels.sweep_probe``), each of which drops one part:
 
-* ``probe_base``: the production chain (``sweep6``'s code), the reference;
-* ``probe_nogather``: no gather and row sum, t = b - lag_col * x_lag;
-* ``probe_nodot``: no K product, x_blk += t (on A / 128, so that the
-  chain stays finite);
+* ``probe_base``: the production ``sweep6`` f32 instance itself, the
+  reference;
+* ``probe_nogather``: no gather and row sum (no ELL rows staged or
+  prefetched), t = b - lag_col * x_lag;
+* ``probe_nodot``: no K product (no K staged or prefetched), x_blk += t
+  (on A / 128, so that the chain stays finite);
 * ``probe_hoist``: the blocks of each group of 8 consecutive blocks all
-  gather x as it stood when the group began, so the group's gathers are
-  issued at once and none waits on an update of its group.  This is the
+  gather x as it stood when the group began (their rows read from device
+  memory, prefetched into L2), then the group's 8 products run on two K
+  buffers, so no x load waits on an update of its group.  This is the
   port's own definition of the reference's "stale x loads" variant, whose
   output depends on the TPU's patch-table layout.
 
@@ -25,17 +29,20 @@ one-shot K at omega 1.4, the reference's ``scripts/kcache.py build``
 operator); x from seed 1, b from seed 2, no Lagrange column, x_lag 0.
 Each mode is held against its plain version (``gpu_kernels.
 sweep_probe_plain``) on the same inputs (``TOL``, relative to max |plain
-output|), then timed: ``iters`` sweeps chained in place from x, between
-CUDA events (``utils.profiling.chain_time``, each run from a fresh copy
-of x), the median of three runs.  Each line gives ms per sweep, us per
+output|), ``probe_base`` also bit for bit against a ``sweep6`` sweep
+(``gpu_kernels.storage_chain``), then timed: ``iters`` sweeps chained in
+place from x, between CUDA events (``utils.profiling.chain_time``, each
+run from a fresh copy of x), the median of three runs.  Each line gives ms per sweep, us per
 block, the bound of the mode's own work (``profiling.probe_bytes`` /
 ``probe_flops``) and the plain version's ms; the JSON line that ends the
 output splits ``probe_base``'s time per block into the gather
 (base - nogather) and the K product (base - nodot), and gives
 ``probe_hoist``'s time per block beside base's.  Base minus hoist is not
-the wait of x loads on the chain: hoist runs another loop (a group's
-1,024 row gathers, then its 8 K products) with costs of its own that no
-mode separates, so that wait stays unmeasured.
+the wait of x loads on the chain: hoist runs another loop with costs of
+its own that no mode separates (no ELL tile, so its rows come from L2;
+the group's 8 blocks gathered one after another, each block's loads
+issued after the previous block's row sums; a barrier pair a product),
+so that wait stays unmeasured.
 Without a card it exits non-zero.
 """
 
@@ -118,6 +125,11 @@ def run(iters: int = ITERS, seed: int = 0, op: dict | None = None) -> dict:
         err, scale = float((out - ref).abs().max()), float(ref.abs().max())
         if not err <= TOL * scale:
             raise AssertionError(f"{role}: kernel vs plain {err / scale:.3e} > {TOL:.0e}")
+        if role == "probe_base":  # the production sweep6 instance, bit for bit
+            prod = gk.storage_chain(dataclasses.replace(sw, role="sweep6"), x0.clone(), zl, b)
+            if not torch.equal(prod, out):
+                raise AssertionError("probe_base is not the production sweep6 chain")
+            del prod
         del out, ref
         ms = pf.chain_time(lambda v: gk.sweep_probe(sw, v, zl, b), x0, k=iters, reps=3,
                            restart=True) * 1e3

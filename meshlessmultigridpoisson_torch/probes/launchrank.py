@@ -48,7 +48,7 @@ def rank(rec: dict) -> tuple[list[dict], list[tuple[str, float]]]:
         if role.startswith("sweep"):
             lv, part = level[c], ("sweep" if sweeps is None else "smooth")
             bound = per_level[lv]["sweep_bound_ms"] * r / c * (sweeps or 1)
-        elif role in ("bound2", "push2", "ppe2"):
+        elif role in ("bound2", "push2", "ppe2", "ppe2_scatter"):
             lv, part = level.get(c), "rows"
             bound = (per_level[lv].get("resolve_bound_ms", 0.0)
                      if role == "bound2" and lv is not None else 0.0)

@@ -5,7 +5,7 @@ matvec and smoother sweep are timed on the card with CUDA events
 (``chain_time``) and turned into throughputs from the level's true nonzero
 count and a byte model of what each function needs: its nonzeros and its
 vectors, no padding (``spmv_bytes``, ``sweep_bytes``, ``smooth_bytes``,
-``compact_bytes``;
+``compact_bytes``, ``ppe_tail_bytes``;
 for the timing probes, each mode's or table mix's own work:
 ``probe_bytes``, ``spmv_probe_bytes``, ``stream_bytes``, ``kiso_bytes``).  Below
 ``ENQUEUE_MS`` a chain of launches times the host's enqueue, and
@@ -149,12 +149,13 @@ def sweep_flops(sw) -> int:
 RESOLVE_FLOPS = 4  # per boundary row: d * x, y - d x, b - (...), / d
 
 
-def smooth_bytes(sw, lag_row=None, bound=None) -> int:
+def smooth_bytes(sw, lag_row=None, bound=None, start=None) -> int:
     """Bytes one smoother call needs, each input read once and each output
     written once, whatever its sweeps: the sweep's (``sweep_bytes``: x and b
-    included), the Lagrange row where it relaxes (``lag_row``), and where it
+    included), the Lagrange row where it relaxes (``lag_row``), where it
     re-solves (``bound``, a non-empty DeviceCompact) the boundary rows'
-    nonzeros (value and int32 column), targets and diagonals.
+    nonzeros (value and int32 column), targets and diagonals, and where it
+    pins (``start``: mask, values) both vectors.
     ``probes.launchrank`` charges a fused launch of ``iters`` sweeps
     ``iters`` times the one-sweep call's bound instead: what ``iters``
     separate sweeps must move."""
@@ -164,19 +165,22 @@ def smooth_bytes(sw, lag_row=None, bound=None) -> int:
     if bound is not None and bound.nrows:
         es = bound.vals.element_size()
         n += _nnz(bound.vals) * (es + 4) + bound.nrows * (4 + es)
+    if start is not None:
+        n += start[0].nbytes + start[1].nbytes
     return n
 
 
-def smooth_flops(sw, iters: int = 1, lag_row=None, bound=None) -> int:
+def smooth_flops(sw, iters: int = 1, lag_row=None, bound=None, resolves: int = 0) -> int:
     """Operations of ``iters`` sweeps, each with its relax (a multiply and an
     add a row, then the update) and re-solve (the rows' products and
-    ``RESOLVE_FLOPS`` a row)."""
+    ``RESOLVE_FLOPS`` a row), and of ``resolves`` more re-solves (the
+    V-cycle's, in the same call)."""
     per = sweep_flops(sw)
     if lag_row is not None:
         per += 2 * lag_row.numel() + 4
-    if bound is not None and bound.nrows:
-        per += compact_flops(bound) + RESOLVE_FLOPS * bound.nrows
-    return iters * per
+    resolve = (compact_flops(bound) + RESOLVE_FLOPS * bound.nrows
+               if bound is not None and bound.nrows else 0)
+    return iters * (per + resolve) + resolves * resolve
 
 
 def level_smooth_args(level) -> tuple:
@@ -300,6 +304,31 @@ def compact_bytes(C) -> int:
 
 def compact_flops(C) -> int:
     return 2 * _nnz(C.vals)
+
+
+def compact_fill(C) -> float:
+    """Mean ``lens`` of a compact table's true rows over its width: the
+    share of each row the kernels read."""
+    m = C.nrows
+    return float(C.lens[:m].double().mean()) / C.width if m else 0.0
+
+
+def ppe_tail_bytes(T) -> int:
+    """Bytes the function of one ``ppe_tail`` call needs (``T`` a
+    PpeTail): the boundary rows' nonzeros (value and int32 column) and each
+    true row's target, and over the fine level p, q, x, the Lagrange column
+    and the live flags (1 B) read once, y written once.  The kernel's own
+    row -> compact-row map and the rows' ``lens`` are how it reads them,
+    not what the function needs: not counted."""
+    C = T.C
+    es = C.vals.element_size()
+    return _nnz(C.vals) * (es + 4) + 4 * C.nrows + C.n_pad * (5 * es + 1)
+
+
+def ppe_tail_flops(T) -> int:
+    """The rows' products, p + q a row, the Lagrange column's product and
+    add a row."""
+    return compact_flops(T.C) + 3 * T.C.n_pad
 
 
 def library_csr(vals: torch.Tensor, cols: torch.Tensor, ncols: int):

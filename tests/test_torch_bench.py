@@ -108,6 +108,24 @@ def test_compact_bytes_and_library_csr():
                                rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_ppe_tail_bytes_count_what_the_function_needs(dtype):
+    """``ppe_tail_bytes``: the boundary rows' nonzeros and targets, p, q,
+    x, the Lagrange column and the live flags read once and y written once
+    over the fine level; not the kernel's row -> compact-row map, nor the
+    rows' ``lens``."""
+    a = bench.synthetic_banded_csr(600, 9, 40, seed=5)
+    targets = np.arange(3, 600, 7)
+    C = gk.device_compact(_compact_from_rows(a, targets, block_rows=128),
+                          dtype, "cpu", "ppe2")
+    live = torch.from_numpy(np.random.default_rng(1).random(C.n_pad) < 0.9)
+    T = gk.ppe_tail_table(C, live, torch.zeros(C.n_pad, dtype=dtype))
+    es = torch.finfo(dtype).bits // 8
+    assert pf.ppe_tail_bytes(T) == (a[targets].nnz * (es + 4) + targets.size * 4
+                                    + C.n_pad * (5 * es + 1))
+    assert pf.ppe_tail_flops(T) == 2 * a[targets].nnz + 3 * C.n_pad
+
+
 def test_bound_picks_the_larger_time():
     ms, by = pf.bound_ms(3.35e9, 1.0, torch.float32, H100)
     assert by == "bytes" and ms == pytest.approx(1.0)

@@ -383,19 +383,17 @@ def test_compact_rows_matches_plain(compact, role, dtype, tol):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 def test_compact_rows_scatter_matches_plain(compact, dtype, tol):
-    """Role ppe2: y[r] = (C x)_i in place on y, sentinel slots write nothing,
-    x is left alone; an output aliasing x is refused."""
-    import dataclasses
-
+    """Role ppe2_scatter (the parent design of the PPE matvec's tail): y[r]
+    = (C x)_i in place on y, sentinel slots write nothing, x is left alone;
+    an output aliasing x is refused."""
     table, only_diag = compact
-    C = dataclasses.replace(gk.device_compact(table, dtype, "cuda", "bound2"),
-                            role="ppe2")
+    C = gk.device_compact(table, dtype, "cuda", "ppe2_scatter")
     x, y = _rand(C.n_pad, dtype, 5), _rand(C.n_pad, dtype, 6)
     x0 = x.clone()
-    before = gk.COUNTS["ppe2"]
+    before = gk.COUNTS["ppe2_scatter"]
     out = gk.compact_rows(C, x, y.clone())
     torch.cuda.synchronize()
-    assert gk.COUNTS["ppe2"] == before + 1
+    assert gk.COUNTS["ppe2_scatter"] == before + 1
     ref = gk.compact_rows_plain(C, x, y.clone())
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     assert torch.equal(x, x0)
@@ -407,6 +405,146 @@ def test_compact_rows_scatter_matches_plain(compact, dtype, tol):
     assert abs(float(out[only_diag] - 2.5 * x[only_diag])) <= tol * float(ref.abs().max())
     with pytest.raises(ValueError, match="alias"):
         gk.compact_rows(C, x, x)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_ppe_tail_matches_plain_and_parent(compact, dtype, tol):
+    """Role ppe2: the compatible matvec's tail in one launch (sum of the
+    SpMVs, the boundary rows' products over it, x on the rows not live,
+    the Lagrange column) against its plain version and the parent design's
+    separate launches (``ppe2_scatter``): one launch each; the rows no
+    boundary row targets bit-equal (elementwise, each product rounded on
+    its own); the 93 sentinel slots write nothing; the inputs left alone."""
+    table, only_diag = compact
+    C = gk.device_compact(table, dtype, "cuda", "bound2")
+    n = C.n_pad
+    live = (torch.rand(n, generator=torch.Generator().manual_seed(29)) > 0.2).cuda()
+    live[only_diag] = True
+    T = gk.ppe_tail_table(C, live, _rand(n, dtype, 30))
+    assert T.C.role == "ppe2" and T.C.vals is C.vals
+    rows = table.rows[: table.nrows].long().cuda()
+    assert torch.equal(T.slot[rows].long().cpu(), torch.arange(table.nrows))
+    assert int((T.slot >= 0).sum()) == table.nrows  # sentinel slots: no row
+    p, q, x = (_rand(n, dtype, s) for s in (31, 32, 33))
+    ins = [v.clone() for v in (p, q, x)]
+    xl = torch.tensor(0.7, dtype=dtype, device="cuda")
+    before = dict(gk.COUNTS)
+    y = gk.ppe_tail(T, p, q, x, xl)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        "ppe2": 1}
+    assert all(torch.equal(a, b) for a, b in zip(ins, (p, q, x)))
+    ref = gk.ppe_tail_loop(T, p, q, x, xl, plain=True)
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= tol * scale
+    off = torch.ones(n, dtype=torch.bool, device="cuda")
+    off[rows] = False
+    assert torch.equal(y[off], ref[off])
+    want = 2.5 * x[only_diag] + T.lag_col[only_diag] * xl  # the diagonal-only row
+    assert abs(float(y[only_diag] - want)) <= tol * scale
+    before = dict(gk.COUNTS)
+    parent = gk.ppe_tail_loop(T, p, q, x, xl)
+    torch.cuda.synchronize()
+    assert {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]} == {
+        "ppe2_scatter": 1}
+    assert float((parent - ref).abs().max()) <= tol * scale
+    with pytest.raises(ValueError, match="ppe_tail"):
+        gk.compact_rows(T.C, x, y)
+
+
+def _cut_lens(C):
+    """``C`` with each row's lens one short of its last nonzero."""
+    return dataclasses.replace(C, lens=(C.lens - 1).clamp(min=0).contiguous())
+
+
+@pytest.mark.parametrize("role", ["bound2", "push2"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_compact_rows_reads_to_lens(compact, role, dtype, tol):
+    """Each row read to its ``lens``: with every lens cut one short of the
+    row's last nonzero, the kernel drops that entry, as the plain version
+    does (so the result moves off the full rows')."""
+    table, _ = compact
+    C = _cut_lens(gk.device_compact(table, dtype, "cuda", role))
+    x, b = _rand(C.n_pad, dtype, 34), _rand(C.n_pad, dtype, 35)
+    xin = x if role == "bound2" else b
+    out = gk.compact_rows(C, xin.clone(), b)
+    torch.cuda.synchronize()
+    ref = gk.compact_rows_plain(C, xin.clone(), b)
+    full = gk.compact_rows_plain(gk.device_compact(table, dtype, "cuda", role),
+                                 xin.clone(), b)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol * scale
+    assert float((full - ref).abs().max()) > 1e3 * tol * scale
+
+
+def _pin(n_pad, dtype, targets, seed):
+    """A Dirichlet pin over the fixture: every 5th row that is no boundary
+    target, to random values."""
+    mask = torch.zeros(n_pad, dtype=dtype)
+    mask[::5] = 1.0
+    mask[torch.as_tensor(targets).long()] = 0.0
+    return mask.cuda(), _rand(n_pad, dtype, seed)
+
+
+@pytest.mark.parametrize("role", ["sweep8", "sweep7"])
+@pytest.mark.parametrize("dtype,kdt,tol", FUSED_CASES, ids=["f32", "f64", "bf16k"])
+def test_block_smooth_fused_resolves_match_plain(et, bound_rows, role, dtype, kdt, tol):
+    """The V-cycle's re-solves in the fused launch: before the first sweep
+    the re-solve from the input x, then the pin (x unpinned on entry, so
+    the pin's place shows); after the last one more re-solve; each alone
+    and both, against the plain version (separate re-solves and
+    ``torch.where``): one launch, no ``bound2``; a rerun gives the same
+    bits.  Then the same with each boundary row's lens cut one short of
+    its last nonzero: the fused re-solves read to lens too."""
+    sw, lag_row, bound = _fused_level(et, bound_rows, dtype, kdt, role)
+    n = et.nrows_pad
+    pin = _pin(n, dtype, bound_rows.rows[: bound_rows.nrows], 26)
+    x, b = _rand(n, dtype, 27), _rand(n, dtype, 28)
+    xl, bl = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.3, -0.4))
+    cases = [(bound, True, True), (bound, True, False), (bound, False, True),
+             (_cut_lens(bound), True, True)]
+    for table, first, last in cases:
+        args = (b, bl, 2, 1.4, lag_row, table)
+        kw = dict(start=pin if first else None, resolve_last=last)
+        before = dict(gk.COUNTS)
+        out, out_l = gk.block_smooth(sw, x, xl, *args, **kw)
+        torch.cuda.synchronize()
+        assert {k: gk.COUNTS[k] - before[k] for k in before
+                if gk.COUNTS[k] != before[k]} == {role: 1}
+        ref, ref_l = gk.block_smooth_plain(sw, x, xl, *args, **kw)
+        _held(out, ref, x, out_l, ref_l, 0.3, kdt, tol)
+        again, again_l = gk.block_smooth(sw, x, xl, *args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(again, out) and torch.equal(again_l, out_l)
+    with pytest.raises(ValueError, match="in place"):
+        gk.block_smooth(sw, x.clone(), xl, b, iters=1, inplace=True, start=pin)
+
+
+def test_vcycle_launches_no_bound2_on_a_fused_fine_level():
+    """``krylov._precond`` (one V-cycle from zero; the fine re-solves at its
+    start and end) on the Neumann slice 600/2500/5000, deg 4, whose fine
+    level is ``sweep8``: no ``bound2`` launch, one launch a smoother call,
+    and the result of the plain flow on the CPU within 1e-4 of max (f32)."""
+    from meshlessmultigridpoisson_torch.mg import gpu_backend, krylov, mixed
+    from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
+
+    prob = make_poisson_problem("square_with_circle", [600, 2500, 5000], poly_deg=4,
+                                neumann=True, block_rows=512, ordering="kdtile")
+    hd = {d: mixed.defect_hierarchy(gpu_backend.gpu_hierarchy(prob.hierarchy, d))
+          for d in ("cuda", "cpu")}
+    assert [lv.sweep.role for lv in hd["cuda"].levels] == ["sweep7", "sweep7", "sweep8"]
+    fine = hd["cuda"].levels[-1]
+    assert fine.has_lagrange and fine.bound.nrows > 0
+    v = _rand(fine.n_pad, torch.float32, 36)
+    vl = torch.tensor(0.05, device="cuda")
+    before = dict(gk.COUNTS)
+    z, zl = krylov._precond(hd["cuda"], v, vl)
+    torch.cuda.synchronize()
+    made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
+    assert made.get("bound2", 0) == 0 and made["sweep8"] == 2 and made["sweep7"] == 4, made
+    zc, zlc = krylov._precond(hd["cpu"], v.cpu(), vl.cpu())
+    assert float((z.cpu() - zc).abs().max()) <= 1e-4 * float(zc.abs().max())
+    assert abs(float(zl) - float(zlc)) <= 1e-4 * max(abs(float(zlc)), 1e-30)
 
 
 def test_wrapper_refuses_wrong_dtype(et):
@@ -635,9 +773,9 @@ def test_sweep1_role_counts_and_matches_plain(et, dtype, tol):
 
 @pytest.mark.parametrize("mode", sorted(gk.PROBE_MODES))
 def test_sweep_probe_modes_count_and_match_plain(mode):
-    """Each timing mode of ``block_oneshot_sweep`` against its plain version
-    on the bench operator at 16,384 rows (128 blocks, 16 hoisted groups);
-    ``probe_base`` is the production chain."""
+    """Each timing mode of ``storage_chain`` against its plain version on
+    the bench operator at 16,384 rows (128 blocks, 16 hoisted groups);
+    ``probe_base`` is the production chain (``sweep6``), bit for bit."""
     from meshlessmultigridpoisson_torch import bench
     from meshlessmultigridpoisson_torch.probes import ksweepprobe
 

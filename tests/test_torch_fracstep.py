@@ -7,8 +7,8 @@ reference FracStepConfig with ``ppe_tol`` 1e-10.
 * problem build: identical clouds; ``dx``/``dy``/``lap`` and the base-degree
   transfers to 1e-12 relative; ``bmask``, ``u_bc``, ``v_bc``, ``normals``
   exact;
-* ``compact_rows`` role ``ppe2`` (plain version) against the reference
-  ``spmv_tpu2`` in interpret mode plus the ``_mv32`` scatter;
+* ``compact_rows`` role ``ppe2_scatter`` (plain version) against the
+  reference ``spmv_tpu2`` in interpret mode plus the ``_mv32`` scatter;
 * ``_mv64`` against the reference ``make_compatible_matvec`` (1e-12), and
   ``_mv32`` within the f32 kernel budget (rtol 2e-4 of max |y|);
 * ``solve_mixed``'s stopping rule (tol, max_outer, 0.7x stagnation, no
@@ -132,18 +132,21 @@ def test_problem_build_matches_reference(jprob):
 
 
 def test_compact_rows_ppe2_matches_spmv_tpu2_scatter(jprob, gfs):
+    """The scatter of the matvec's tail alone (role "ppe2_scatter", the
+    parent design of ``ppe_tail``) on the tail's table."""
     top = tb.tpu_level_from_operator(jprob.hierarchy.finest)
-    C = gfs.ppe32
-    assert C.role == "ppe2" and C.vals is gfs.hd.levels[-1].bound.vals  # shared
+    assert gfs.ppe32.C.role == "ppe2"
+    C = gfs.ppe32.scatter
+    assert C.role == "ppe2_scatter" and C.vals is gfs.hd.levels[-1].bound.vals  # shared
     rng = np.random.default_rng(51)
     x = rng.standard_normal(C.n_pad).astype(np.float32)
     y = rng.standard_normal(C.n_pad).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         yb = spmv_tpu2(top.bound_kell, jnp.asarray(x))[: top.bound_rows.shape[0]]
         ref = np.asarray(jnp.asarray(y).at[top.bound_rows].set(yb, mode="drop"))
-    before = gk.COUNTS["ppe2"]
+    before = gk.COUNTS["ppe2_scatter"]
     out = gk.compact_rows(C, torch.from_numpy(x), torch.from_numpy(y.copy())).numpy()
-    assert gk.COUNTS["ppe2"] == before  # plain version: no launch counted
+    assert gk.COUNTS["ppe2_scatter"] == before  # plain version: no launch counted
     np.testing.assert_allclose(out, ref, rtol=0, atol=2e-4 * np.abs(ref).max())
     moved = np.nonzero(out != y)[0]
     assert set(moved) <= set(C.rows[: C.nrows].tolist())

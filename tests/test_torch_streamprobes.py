@@ -286,6 +286,33 @@ def test_sassloads_counts_loads_per_instance(monkeypatch, drop):
     assert sassloads.i16_loads_live(loads) is (drop == 0)
 
 
+@pytest.mark.parametrize("case", ["same", "differs", "missing"])
+def test_sassloads_compare_matches_instances_with_a_zero_mode(monkeypatch, case):
+    """``compare`` pairs each instance of the old source with the new
+    source's instance of the same template arguments plus trailing zeros
+    (a compile-time mode whose 0 is the production code) and reports the
+    first instruction where they differ."""
+    from meshlessmultigridpoisson_torch.probes import sassloads
+
+    sig = "void (anonymous namespace)::chain_kernel<float, __nv_bfloat16, (int)0>(Args<float>)"
+    assert sassloads._args(sig, "chain_kernel") == ["float", "__nv_bfloat16", "(int)0"]
+    base = ["LDG.E R2, desc[UR4][R4.64]", "FFMA R0, R2, R3, R0", "EXIT"]
+    new = {("float", "float", "(int)0"): list(base), ("float", "float", "(int)1"): ["EXIT"]}
+    if case == "differs":
+        new[("float", "float", "(int)0")][1] = "FMUL R0, R2, R3"
+    elif case == "missing":
+        del new[("float", "float", "(int)0")]
+    monkeypatch.setattr(sassloads, "kernel_sass",
+                        lambda src, kernel: {("float", "float"): base} if src == "old.cu" else new)
+    res = sassloads.compare("old.cu", "new.cu", "chain_kernel")
+    row = res["instances"]["<float, float>"]
+    assert res["same"] is (case == "same") and row["same"] is (case == "same")
+    if case == "differs":
+        assert row["first_diff"] == 1 and row["new_insn"] == "FMUL R0, R2, R3"
+    if case == "missing":
+        assert row["new"] is None
+
+
 def test_device_ms_refuses_the_cpu():
     with pytest.raises(ValueError, match="card"):
         pf.device_ms(lambda v: v * 2, torch.zeros(4))
