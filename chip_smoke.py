@@ -114,7 +114,20 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    paths' counts are read, each runs once more with ``--profile``, its
    per-level table (bounds of the matvec, smoother, transfers and re-solve)
    is printed, each time at or above its bound, and
-   ``probes.launchrank``'s excess by role;
+   ``probes.launchrank``'s excess by role.  Then the 3D path at reduced
+   depth: ``solve --geom box3d --sizes 500 2600 19000 140000 --deg 3
+   --ordering kdtile --block-rows 512 --tol 1e-8`` (the 3D record's
+   settings, ``scripts/build3d_cache.py``, without its 1.06M level: clouds
+   of 729 / 3,375 / 21,952 / 148,877 points, stencils of 25 and 50
+   entries), its counts set to 0 before and read after: level kinds
+   ``[v7-exact x2, v8-colored x2]``, the Dirichlet roles launched, no
+   ``bound2``, the residual < 1e-8 re-checked with the plain f64 SpMV, and
+   the L1 error within 1% of the reference package's host f64 BiCGStab on
+   the same problem (``THREED_REF_L1``); then, on its problem, ``ell_spmv``
+   (fine f32 matvec, f64 outer operator, coarsest matvec, the transfers
+   between L2 and L3) and the fused smoothers (L3 ``colored_smooth``, L0
+   and L1 ``coarse_smooth``) against their plain versions at the 3D
+   shapes, as in phase 2;
 4. the fractional-step Navier-Stokes path (``cli ns``, Kovasznay, the
    reference program's default run at its default width and depth: sizes
    170/600/2500/10000, deg 6): on its problem, ``ppe_tail`` (role ``ppe2``,
@@ -187,9 +200,11 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    table padded to a multiple of 8 blocks), ``probes.kiso7``
    (``kiso7_affine``, ``kiso7_ids`` and the stock ``spmv4``) and
    ``probes.kiso8`` (``kiso8_mxu``, ``kiso8_mxudef``: the tensor-core row
-   sums in two and one TF32 passes; ``kiso8_vpu``: the warp shuffle);
-   every role within 1e-5 of max |plain| (``kiso8_mxudef`` of its TF32
-   plain version);
+   sums in two and one TF32 passes; ``kiso8_vpu``: the warp shuffle;
+   ``kiso8_mxu_v1``, ``kiso8_mxudef_v1``: the parent design of the two,
+   then each production mma role against its parent in turns parent,
+   change, change, parent, printed); every role within 1e-5 of max |plain|
+   (the one-pass roles of their TF32 plain version);
 9. print a JSON line of per-kernel results, the total time, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
@@ -213,6 +228,14 @@ import sys
 import time
 
 SLICE_SIZES = [2500, 10000, 35000, 150000]
+# the 3D path: the record's settings (scripts/build3d_cache.py) without its
+# 1,060,000 level
+THREED_SIZES = [500, 2600, 19000, 140000]
+THREED_KERNELS = ["v7-exact", "v7-exact", "v8-colored", "v8-colored"]
+# L1 error of the reference package's host f64 BiCGStab (tol 1e-8) on the
+# same problem, on the CPU (8 BiCGStab iterations to 1.82e-9)
+THREED_REF_L1 = 3.0875831977551283e-04
+THREED_L1_RTOL = 0.01
 EXPECT_KERNELS = ["v7-exact", "v8-colored", "v8-colored", "v8-colored"]
 EXACT_KERNELS = ["v7-exact", "v6-oneshot", "v6-oneshot", "v6-oneshot"]
 ROLES = {
@@ -289,6 +312,9 @@ ROLES = {
            "scripts/kiso7.py:86") for m in ("kiso7_affine", "kiso7_ids")},
     **{m: ("ell_rowsum_mma", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
            "scripts/kiso8.py:136") for m in ("kiso8_mxu", "kiso8_mxudef")},
+    **{m: ("ell_rowsum_mma (parent design)",
+           "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
+           "scripts/kiso8.py:136") for m in ("kiso8_mxu_v1", "kiso8_mxudef_v1")},
     "kiso8_vpu": ("ell_spmv", "meshlessmultigridpoisson_torch/csrc/ell_spmv.cu",
                   "scripts/kiso8.py:136"),
 }
@@ -320,13 +346,13 @@ KISO_ITERS = 20
 KISO6_ROLES = ("kiso6_i16_guarded", "kiso6_i16_unguarded", "kiso6_i32_guarded",
                "kiso6_i32_unguarded")
 KISO7_ROLES = ("kiso7_affine", "kiso7_ids", "spmv4")
-KISO8_ROLES = ("kiso8_mxu", "kiso8_mxudef", "kiso8_vpu")
+KISO8_ROLES = ("kiso8_mxu", "kiso8_mxudef", "kiso8_vpu", "kiso8_mxu_v1", "kiso8_mxudef_v1")
 # the NS main path: the reference program's default run at its own width
 # and depth (cli ns defaults), S steps from rest
 NS_SIZES = [170, 600, 2500, 10000]
 NS_STEPS = 12
 NS_AB_STEPS = 6  # steps a run of the NS A/B
-NS_AB_ROUNDS = 3  # rounds of parent, change, change, parent
+NS_AB_ROUNDS = 2  # rounds of parent, change, change, parent
 NS_ROLES = DIRICHLET_ROLES + ("bound2", "ppe2")
 NS_EXPECT_KERNELS = ["v7-exact", "v7-exact", "v7-exact", "v8-colored"]
 # the reference's TPU record of that run (2000 steps; history every 4th step)
@@ -352,34 +378,6 @@ PCT_OF_BOUND_MAX = 105.0
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
-
-
-def bordered_residual(op, b, b_lag, x, x_lag) -> float:
-    """Relative L1 residual of the bordered fine system, recomputed from
-    (x, x_lag) with the plain f64 gather-sum SpMV on ``x``'s device:
-    (||b - A x - lag_col x_lag||_1 + |b_lag - lag_row.x - x_lag|)
-    / (||b||_1 + |b_lag|), Dirichlet rows as identity rows x = g.  ``op`` is
-    the host f64 LevelOperator; without a border the border terms vanish."""
-    import torch
-
-    from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
-    from meshlessmultigridpoisson_torch.ops.ell import global_cols
-
-    dev = x.device
-
-    def f(v):
-        return torch.as_tensor(v).to(device=dev, dtype=torch.float64)
-
-    dmask = op.dirichlet_mask.to(dev) > 0
-    b, b_lag, x_lag = torch.where(dmask, f(op.dirichlet_values), f(b)), f(b_lag), f(x_lag)
-    y = gk.ell_spmv_plain(f(op.A.vals), global_cols(op.A).to(dev), x)
-    r_lag = torch.zeros((), dtype=torch.float64, device=dev)
-    if op.has_lagrange:
-        y = y + f(op.lag_col) * x_lag
-        r_lag = b_lag - (f(op.lag_row) * x).sum() - x_lag
-    y = torch.where(dmask, x, y)
-    return float(((b - y).abs().sum() + r_lag.abs())
-                 / (b.abs().sum() + b_lag.abs()))
 
 
 def compatible_residual(prob, b, x, x_lag) -> float:
@@ -487,6 +485,7 @@ def main(argv=None) -> int:
             sassloads,
         )
         from meshlessmultigridpoisson_torch.utils import profiling as pf
+        from meshlessmultigridpoisson_torch.utils.metrics import bordered_residual
     except ImportError as e:
         return fail(f"the port package is not next to this script ({e})")
     dev = torch.device("cuda", 0)
@@ -1274,6 +1273,62 @@ def main(argv=None) -> int:
     del prob
     torch.cuda.empty_cache()
 
+    # the 3D path (box3d, deg 3) at reduced depth
+    argv3 = ["solve", "--device", "cuda", "--geom", "box3d",
+             "--sizes", *map(str, THREED_SIZES), "--deg", "3", "--ordering", "kdtile",
+             "--block-rows", "512", "--tol", "1e-8"]
+    print("main path (3d): python -m meshlessmultigridpoisson_torch.apps.cli "
+          + " ".join(argv3), flush=True)
+    gk.reset_counts()
+    rec, prob, x, xl = cli.run_solve(argv3)
+    torch.cuda.synchronize()
+    launches["3d"] = dict(gk.COUNTS)
+    timed = rec.extra["launches"]
+    print(rec.to_json(), flush=True)
+    print(f"launches during the 3d main path (warm-up + timed): {launches['3d']}",
+          flush=True)
+    kinds = rec.extra["level_kernels"]
+    if kinds != THREED_KERNELS:
+        return fail(f"3d: level kernels {kinds} != {THREED_KERNELS}")
+    idle = [r for r in DIRICHLET_ROLES if launches["3d"][r] == 0]
+    busy = [r for r in ("bound2", "sweep6", "sweep8_percolor") if launches["3d"][r] != 0]
+    if idle or busy:
+        return fail(f"3d: roles never launched {idle}, roles off this path launched {busy}")
+    v = vcycles(kinds, timed)
+    print(f"3d: {rec.cycles} passes, {v} V-cycles in the timed solve "
+          f"{rec.wall_time_s:.4f} s, setup {rec.extra['setup_time_s']:.1f} s "
+          f"({rec.extra['setup_stages_s']}), device memory "
+          f"{rec.extra['max_memory_allocated_gb']:.3f} GB ({card})", flush=True)
+    recheck = bordered_residual(prob.hierarchy.levels[-1], prob.state0.b[-1],
+                                prob.state0.b_lag[-1], x, xl)
+    print(f"3d: residual {rec.final_residual:.3e}, re-checked (plain f64 SpMV) "
+          f"{recheck:.3e}; L1 error {rec.l1_error:.6e} against the reference's "
+          f"{THREED_REF_L1:.6e}", flush=True)
+    if not (rec.final_residual < 1e-8 and recheck < 1e-8):
+        return fail(f"3d: residual {rec.final_residual:.3e}, re-checked {recheck:.3e}")
+    if not abs(rec.l1_error - THREED_REF_L1) <= THREED_L1_RTOL * THREED_REF_L1:
+        return fail(f"3d: l1_error {rec.l1_error:.6e} not within {THREED_L1_RTOL:.0%} "
+                    f"of the reference's {THREED_REF_L1:.6e}")
+    # the kernels at the 3D shapes: stencils of 25 and 50, the colored
+    # level's x patches
+    g3 = gpu_hierarchy(prob.hierarchy, dev, torch.float32)
+    outer3 = gpu_level_from_operator(prob.hierarchy.levels[-1], dev, torch.float64,
+                                     sweep=False)
+    fine3, nl3 = g3.levels[-1], len(g3.levels)
+    print(f"3d kernel vs plain: x patches a block on L3 {fine3.sweep.patches.pids.shape[1]}",
+          flush=True)
+    check_spmv(fine3.A.role, "3D fine matvec", fine3.A)
+    check_spmv(outer3.A.role, "3D outer f64 operator", outer3.A)
+    check_spmv(g3.levels[0].A.role, "3D coarsest matvec", g3.levels[0].A)
+    check_spmv(g3.restrict[-1].role, f"3D restriction L{nl3 - 1}->L{nl3 - 2}",
+               g3.restrict[-1])
+    check_spmv(g3.prolong[-1].role, f"3D prolongation L{nl3 - 2}->L{nl3 - 1}",
+               g3.prolong[-1])
+    for i in (nl3 - 1, 1, 0):
+        check_level_smooth(f"3D L{i}", g3.levels[i])
+    del rec, prob, x, xl, g3, outer3, fine3
+    torch.cuda.empty_cache()
+
     # ---- 4. the fractional-step Navier-Stokes path ---------------------------
     from meshlessmultigridpoisson_torch.models.fracstep import build_fracstep_problem
     from meshlessmultigridpoisson_torch.models.fracstep_gpu import build_gpu_fracstep, run_gpu
@@ -1571,6 +1626,14 @@ def main(argv=None) -> int:
         if name == "kiso6":
             print(f"kiso6 ({card}): {res['padding']}; largest block column span "
                   f"{res['max_block_span']}", flush=True)
+        if name == "kiso8":  # each mma role against its parent design, in turns
+            for role, t in res["ab"].items():
+                turns = [t["parent"][0], t["change"][0], t["change"][1], t["parent"][1]]
+                print(f"kiso8 A/B {role}: {kiso8.PARENT[role]} {turns[0]:.4f} / {role} "
+                      f"{turns[1]:.4f} / {role} {turns[2]:.4f} / {kiso8.PARENT[role]} "
+                      f"{turns[3]:.4f} ms ({card})", flush=True)
+                for r in (role, kiso8.PARENT[role]):
+                    results[r][-1]["ab_ms"] = turns
         if name == "chaintime":
             for label, r in res["calibrations"].items():
                 print(f"chaintime calibration {label} ({card}): {json.dumps(r)}",

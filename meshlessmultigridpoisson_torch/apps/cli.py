@@ -204,13 +204,16 @@ def run_solve(argv=None, problem=None, use_v6=None):
     args = _parser().parse_args(argv)
     dev = _device(args.device)
     log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
+    if dev.type == "cuda":  # the record's peak is this run's
+        torch.cuda.reset_peak_memory_stats(dev)
 
     with Timer() as t_setup:
-        prob = problem or make_poisson_problem(
-            args.geom, sizes=list(args.sizes), poly_deg=args.deg, k1=args.k,
-            neumann=args.neumann, seed=args.seed, ordering=args.ordering,
-            block_rows=args.block_rows, device=dev,
-        )
+        with Timer() as t_host:
+            prob = problem or make_poisson_problem(
+                args.geom, sizes=list(args.sizes), poly_deg=args.deg, k1=args.k,
+                neumann=args.neumann, seed=args.seed, ordering=args.ordering,
+                block_rows=args.block_rows, device=dev,
+            )
         ghier = gpu_hierarchy(prob.hierarchy, dev, sweep_order=args.sweep_order,
                               k_dtype=torch.bfloat16 if args.fast_k else None,
                               use_v6=use_v6)
@@ -261,7 +264,13 @@ def run_solve(argv=None, problem=None, use_v6=None):
     rec.final_residual = float(res)
     rec.extra["launches"] = {k: v - before[k] for k, v in gpu_kernels.COUNTS.items()}
     rec.extra["setup_time_s"] = t_setup.elapsed
+    # the host problem's build (0 when ``problem`` was passed), the rest is
+    # the repack to the device and the right-hand side
+    rec.extra["setup_stages_s"] = {"host_problem": t_host.elapsed,
+                                   "repack": t_setup.elapsed - t_host.elapsed}
     rec.extra["first_run_s"] = t_first.elapsed
+    if dev.type == "cuda":  # the tensors of setup and both solves
+        rec.extra["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     rec.extra["device"] = device_name
     rec.l1_error = l1_error(prob, x)
     if args.profile:

@@ -93,22 +93,38 @@
 // TF32, straight into its registers of an mma.sync m16n8k8 A fragment
 // (lane l: rows l/4 and l/4 + 8, slots l%4 and l%4 + 4; slot order within
 // a chunk is free, since B is all ones: lane l takes the row's entries
-// 8c + 2(l%4) and + 1, one 8-byte load of values and one of columns per
-// row).  Column n of the f32 accumulator holds the 16 row sums for every
-// n; lanes l%4 == 0 write column 0.  The width must be a multiple of 8
-// (the host pads with value 0 and a valid column).  Passes = 2, the
-// counterpart of the reference's Precision.HIGHEST: hi = cvt.rna.tf32(p),
-// lo = cvt.rna.tf32(p - hi), two mma a chunk (ones are exact in TF32, so
-// B needs no split), p kept to ~2^-22 relative.  Passes = 1, the
-// counterpart of DEFAULT: one TF32 pass, ~3 decimal digits, timing only.
+// 8c + 2(l%4) and + 1).  Column n of the f32 accumulator holds the 16 row
+// sums for every n; lanes l%4 == 0 write column 0.  The width must be a
+// multiple of 8 (the host pads with value 0 and a valid column).  Passes =
+// 2, the counterpart of the reference's Precision.HIGHEST: hi =
+// cvt.rna.tf32(p), lo = cvt.rna.tf32(p - hi), two mma a chunk (ones are
+// exact in TF32, so B needs no split), p kept to ~2^-22 relative.  Passes
+// = 1, the counterpart of DEFAULT: one TF32 pass, ~3 decimal digits,
+// timing only.
 // Bounded like the SpMV by its stream of 8 B per entry: the tensor cores
-// do 1/16 of an mma's work per entry; the design keeps each row's loads in
-// whole 32-byte sectors.
+// do 1/16 of an mma's work per entry.  The parent design
+// (ell_rowsum_mma_v1, timing roles kiso8_mxu_v1 / kiso8_mxudef_v1; 47-55%
+// of that bound) reads the fragment layout straight from device memory: a
+// lane's 8-byte loads of values and columns land in eight rows' sectors at
+// once (eight L1 wavefronts an instruction for 256 B, shared with the x
+// gathers), and how many chunks' loads a warp keeps in flight is the
+// compiler's choice (fewer for one pass than for two).  The production
+// design stages a warp's 16 rows of values and columns into
+// shared memory with the bulk-copy engine (cp.async.bulk on one mbarrier a
+// warp: two copies where the 16 rows are contiguous in both places, else
+// one a row, by 32 lanes at once) and reads its fragments there; the
+// device-memory stream then takes no load instruction and no L1 wavefront,
+// and a CTA of 4 warps (37 KB at width 72) leaves room for 6 CTAs an SM,
+// ~220 KB of rows in flight.  The shared rows' stride keeps stride / 8 odd
+// (width, or width + 8) so that a warp's 8-byte fragment read is its two
+// wavefronts.  The fragment layout and the sums are the parent's.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "block_sweep_common.cuh"
 
 namespace {
 
@@ -356,7 +372,7 @@ int launch_ell_spmv_blk(const T* vals, const ColT<Col>* cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kMmaWarps = 8;  // 8 warps x 16 rows = 128 rows per CTA
+constexpr int kMmaWarps = 8;  // parent design: 8 warps x 16 rows a CTA
 
 __device__ __forceinline__ uint32_t to_tf32(float f) {
   uint32_t r;
@@ -376,11 +392,29 @@ __device__ __forceinline__ void mma_ones(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(one), "r"(one));
 }
 
+// one chunk's four products (rows g and g + 8, slots t and t + 4) into d
+template <int Passes>
+__device__ __forceinline__ void mma_products(float (&d)[4], float p0, float p1,
+                                             float p2, float p3) {
+  const uint32_t h0 = to_tf32(p0), h1 = to_tf32(p1), h2 = to_tf32(p2),
+                 h3 = to_tf32(p3);
+  mma_ones(d, h0, h1, h2, h3);
+  if constexpr (Passes == 2) {
+    mma_ones(d, to_tf32(p0 - __uint_as_float(h0)),
+             to_tf32(p1 - __uint_as_float(h1)),
+             to_tf32(p2 - __uint_as_float(h2)),
+             to_tf32(p3 - __uint_as_float(h3)));
+  }
+}
+
+// The parent design (timing roles kiso8_mxu_v1 / kiso8_mxudef_v1):
+// each lane loads its chunk's values and columns straight from device
+// memory, 8 B a load, one chunk at a time.
 template <int Passes>
 __global__ void __launch_bounds__(kWarp * kMmaWarps)
-ell_rowsum_mma_kernel(const float* __restrict__ vals,
-                      const int* __restrict__ cols, int width, int nrows,
-                      const float* __restrict__ x, float* __restrict__ y) {
+ell_rowsum_mma_v1_kernel(const float* __restrict__ vals,
+                         const int* __restrict__ cols, int width, int nrows,
+                         const float* __restrict__ x, float* __restrict__ y) {
   const int lane = threadIdx.x % kWarp;
   const int row0 = (blockIdx.x * kMmaWarps + threadIdx.x / kWarp) * 16;
   if (row0 >= nrows) return;  // whole warp: nrows is a multiple of 16
@@ -394,19 +428,9 @@ ell_rowsum_mma_kernel(const float* __restrict__ vals,
     const float2 vb = *reinterpret_cast<const float2*>(vals + rb + k);
     const int2 ca = *reinterpret_cast<const int2*>(cols + ra + k);
     const int2 cb = *reinterpret_cast<const int2*>(cols + rb + k);
-    const float p0 = va.x * x[ca.x];  // a0: row g,     slot t
-    const float p1 = vb.x * x[cb.x];  // a1: row g + 8, slot t
-    const float p2 = va.y * x[ca.y];  // a2: row g,     slot t + 4
-    const float p3 = vb.y * x[cb.y];  // a3: row g + 8, slot t + 4
-    const uint32_t h0 = to_tf32(p0), h1 = to_tf32(p1), h2 = to_tf32(p2),
-                   h3 = to_tf32(p3);
-    mma_ones(d, h0, h1, h2, h3);
-    if constexpr (Passes == 2) {
-      mma_ones(d, to_tf32(p0 - __uint_as_float(h0)),
-               to_tf32(p1 - __uint_as_float(h1)),
-               to_tf32(p2 - __uint_as_float(h2)),
-               to_tf32(p3 - __uint_as_float(h3)));
-    }
+    // a0: row g, slot t; a1: row g + 8, slot t; a2, a3: slot t + 4
+    mma_products<Passes>(d, va.x * x[ca.x], vb.x * x[cb.x], va.y * x[ca.y],
+                         vb.y * x[cb.y]);
   }
   if (t == 0) {  // d[0]: (row g, column 0); d[2]: (row g + 8, column 0)
     y[row0 + g] = d[0];
@@ -414,19 +438,144 @@ ell_rowsum_mma_kernel(const float* __restrict__ vals,
   }
 }
 
+// ell_rowsum_mma: the production design (see the header comment).
+constexpr int kStageWarps = 4;     // 4 warps x 16 rows = 64 rows a CTA
+constexpr size_t kSmemOptin = 232448;  // shared memory a CTA may opt in to
+constexpr int kStageBarBytes = 128;  // the warps' mbarriers, then the rows
+constexpr int kStageGroup = 3;       // chunks whose gathers are in flight at once
+constexpr int kStageCtasPerSm = 6;   // 37 KB a CTA at width 72
+
+// Shared-memory row stride (in entries) of the staged rows: the width where
+// width / 8 is odd, else width + 8.  Lane (g, t) reads 8 B at word g *
+// stride + 8c + 2t: with stride / 8 odd, rows g and g + 1 .. g + 3 sit on
+// other banks, so a warp's 8-byte read is its two wavefronts and no more.
+__host__ __device__ __forceinline__ int mma_stride(int width) {
+  return (width / 8) % 2 ? width : width + 8;
+}
+
+__host__ __device__ __forceinline__ size_t mma_stage_bytes(int width,
+                                                           int warps) {
+  return kStageBarBytes +
+         static_cast<size_t>(warps) * 16 * mma_stride(width) * 8;
+}
+
+template <int Passes>
+__global__ void __launch_bounds__(kWarp * kStageWarps, kStageCtasPerSm)
+ell_rowsum_mma_kernel(const float* __restrict__ vals,
+                      const int* __restrict__ cols, int width, int nrows,
+                      const float* __restrict__ x, float* __restrict__ y) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int warps = blockDim.x / kWarp;
+  const int row0 = (blockIdx.x * warps + warp) * 16;
+  if (row0 >= nrows) return;  // whole warp: nrows is a multiple of 16
+  const int stride = mma_stride(width);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + warp;
+  float* sv = reinterpret_cast<float*>(smem + kStageBarBytes) +
+              static_cast<size_t>(warp) * 32 * stride;
+  int* sc = reinterpret_cast<int*>(sv + 16 * stride);
+  const size_t base = static_cast<size_t>(row0) * width;
+  const uint32_t row_bytes = static_cast<uint32_t>(width) * 4;
+  if (lane == 0) {
+    mmp_sweep::mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mmp_sweep::mbar_expect(bar, 32 * row_bytes);
+  }
+  __syncwarp();
+  if (stride == width) {  // the 16 rows are contiguous here and there
+    if (lane == 0) {
+      mmp_sweep::bulk_load(sv, vals + base, 16 * row_bytes, bar);
+      mmp_sweep::bulk_load(sc, cols + base, 16 * row_bytes, bar);
+    }
+  } else {  // a row a lane: lanes 0-15 the values, 16-31 the columns
+    const int r = lane % 16;
+    if (lane < 16) {
+      mmp_sweep::bulk_load(sv + r * stride, vals + base + r * width, row_bytes,
+                           bar);
+    } else {
+      mmp_sweep::bulk_load(sc + r * stride, cols + base + r * width, row_bytes,
+                           bar);
+    }
+  }
+  const int g = lane / 4, t = lane % 4;
+  const float* va_s = sv + g * stride + 2 * t;  // row g
+  const float* vb_s = va_s + 8 * stride;        // row g + 8
+  const int* ca_s = sc + g * stride + 2 * t;
+  const int* cb_s = ca_s + 8 * stride;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mmp_sweep::mbar_wait(bar, 0);
+  // a group of chunks: every fragment read, then every gather, then the
+  // mma (without the grouping the one-pass instance interleaved its gathers
+  // with its mma, one chunk's latency at a time)
+  int k = 0;
+  for (; k + 8 * kStageGroup <= width; k += 8 * kStageGroup) {
+    float2 va[kStageGroup], vb[kStageGroup];
+    int2 ca[kStageGroup], cb[kStageGroup];
+    float xs[kStageGroup][4];
+#pragma unroll
+    for (int c = 0; c < kStageGroup; ++c) {
+      va[c] = *reinterpret_cast<const float2*>(va_s + k + 8 * c);
+      vb[c] = *reinterpret_cast<const float2*>(vb_s + k + 8 * c);
+      ca[c] = *reinterpret_cast<const int2*>(ca_s + k + 8 * c);
+      cb[c] = *reinterpret_cast<const int2*>(cb_s + k + 8 * c);
+    }
+#pragma unroll
+    for (int c = 0; c < kStageGroup; ++c) {
+      xs[c][0] = __ldg(x + ca[c].x);
+      xs[c][1] = __ldg(x + cb[c].x);
+      xs[c][2] = __ldg(x + ca[c].y);
+      xs[c][3] = __ldg(x + cb[c].y);
+    }
+#pragma unroll
+    for (int c = 0; c < kStageGroup; ++c) {
+      mma_products<Passes>(d, va[c].x * xs[c][0], vb[c].x * xs[c][1],
+                           va[c].y * xs[c][2], vb[c].y * xs[c][3]);
+    }
+  }
+  for (; k < width; k += 8) {
+    const float2 va = *reinterpret_cast<const float2*>(va_s + k);
+    const float2 vb = *reinterpret_cast<const float2*>(vb_s + k);
+    const int2 ca = *reinterpret_cast<const int2*>(ca_s + k);
+    const int2 cb = *reinterpret_cast<const int2*>(cb_s + k);
+    mma_products<Passes>(d, va.x * __ldg(x + ca.x), vb.x * __ldg(x + cb.x),
+                         va.y * __ldg(x + ca.y), vb.y * __ldg(x + cb.y));
+  }
+  if (t == 0) {
+    y[row0 + g] = d[0];
+    y[row0 + g + 8] = d[2];
+  }
+}
+
+// parent: the parent design (ell_rowsum_mma_v1) instead of the staged one
 template <int Passes>
 int launch_rowsum_mma(const float* vals, const int* cols, int width,
-                      int nrows, const float* x, float* y, void* stream) {
+                      int nrows, const float* x, float* y, bool parent,
+                      void* stream) {
   if (width % 8 != 0 || nrows % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (nrows > 0) {
+  if (nrows == 0) return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  if (parent) {
     const int rows_per_cta = 16 * kMmaWarps;
-    const int grid = (nrows + rows_per_cta - 1) / rows_per_cta;
-    ell_rowsum_mma_kernel<Passes><<<grid, kWarp * kMmaWarps, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-        vals, cols, width, nrows, x, y);
+    ell_rowsum_mma_v1_kernel<Passes>
+        <<<(nrows + rows_per_cta - 1) / rows_per_cta, kWarp * kMmaWarps, 0,
+           st>>>(vals, cols, width, nrows, x, y);
+    return static_cast<int>(cudaGetLastError());
   }
+  // a wide row stages fewer warps a CTA (one warp: widths up to ~1,800)
+  int warps = kStageWarps;
+  while (warps > 1 && mma_stage_bytes(width, warps) > kSmemOptin) --warps;
+  const size_t bytes = mma_stage_bytes(width, warps);
+  if (bytes > kSmemOptin) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ell_rowsum_mma_kernel<Passes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemOptin));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int rows_per_cta = 16 * warps;
+  ell_rowsum_mma_kernel<Passes>
+      <<<(nrows + rows_per_cta - 1) / rows_per_cta, kWarp * warps, bytes, st>>>(
+          vals, cols, width, nrows, x, y);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,10 +654,11 @@ extern "C" int mmp_spmv_probe_f32(const float* vals, const int* cols,
 // The kiso probes (f32).  variant: 0-3 the kiso6 instances
 // <kColU16|kColI32, kIdsGuarded|kIdsUnguarded> as (i16, guarded) = (1, 1),
 // (1, 0), (0, 1), (0, 0) -> 0, 1, 2, 3; 4 kiso7 affine (the parent
-// production instance), 5 kiso7 ids; 6 / 7 ell_rowsum_mma<2> / <1>.  cols is int32
+// production instance), 5 kiso7 ids; 6 / 7 ell_rowsum_mma<2> / <1>, 8 / 9
+// their parent design (ell_rowsum_mma_v1<2> / <1>).  cols is int32
 // or, for the u16 variants, the unsigned 16-bit offsets; col_base (u16
 // only) one int32 a 128-row block; ids (id variants) one a 128-row output
-// block.  nrows: the rows of y for variants 4, 6, 7, the id table's length
+// block.  nrows: the rows of y for variants 4 and 6-9, the id table's length
 // for the id variants.  Returns cudaErrorInvalidValue for an unknown
 // variant, or an mma width or row count that is not a multiple of 8 / 16.
 extern "C" int mmp_kiso_spmv_f32(const float* vals, const void* cols,
@@ -537,9 +687,13 @@ extern "C" int mmp_kiso_spmv_f32(const float* vals, const void* cols,
       return launch_ell_spmv<float, kBase, kColI32, kIds>(
           vals, i32, nullptr, ids, width, nrows, x, y, stream);
     case 6:
-      return launch_rowsum_mma<2>(vals, i32, width, nrows, x, y, stream);
+      return launch_rowsum_mma<2>(vals, i32, width, nrows, x, y, false, stream);
     case 7:
-      return launch_rowsum_mma<1>(vals, i32, width, nrows, x, y, stream);
+      return launch_rowsum_mma<1>(vals, i32, width, nrows, x, y, false, stream);
+    case 8:
+      return launch_rowsum_mma<2>(vals, i32, width, nrows, x, y, true, stream);
+    case 9:
+      return launch_rowsum_mma<1>(vals, i32, width, nrows, x, y, true, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

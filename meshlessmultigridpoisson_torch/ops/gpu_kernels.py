@@ -108,6 +108,9 @@ rows (``kiso7_affine``,            block ids or ids from a prefetched table
 passes (``kiso8_mxu``,             sums by the MXU at HIGHEST / DEFAULT,
 ``kiso8_mxudef``); ``ell_spmv``    or by VPU rolls (``kiso_spmv``;
 (``kiso8_vpu``)                    ``probes.kiso8``)
+``ell_rowsum_mma`` parent design   the same two (rows read straight from
+(``kiso8_mxu_v1``,                 device memory; timing only)
+``kiso8_mxudef_v1``)
 =================================  ===========================================
 
 The sweep takes K in f32, f64, or bf16 with f32 vectors (``--fast-k``) in
@@ -190,7 +193,8 @@ COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "spmvp_nogather": 0, "spmvp_noreduce": 0, "spmvp_neither": 0,
           "kiso6_i16_guarded": 0, "kiso6_i16_unguarded": 0, "kiso6_i32_guarded": 0,
           "kiso6_i32_unguarded": 0, "kiso7_affine": 0, "kiso7_ids": 0,
-          "kiso8_mxu": 0, "kiso8_mxudef": 0, "kiso8_vpu": 0}
+          "kiso8_mxu": 0, "kiso8_mxudef": 0, "kiso8_vpu": 0,
+          "kiso8_mxu_v1": 0, "kiso8_mxudef_v1": 0}
 SPMV_ROLES = ("spmv6", "spmv8", "spmv2", "spmv4", "spmv1", "spmv3")
 SPMV_PARENT = "spmv_rowwarp"  # the parent SpMV design: timing only
 
@@ -607,11 +611,13 @@ def spmv_probe(A: DeviceEll, x: torch.Tensor) -> torch.Tensor:
 KISO_ROLES = {"kiso6_i16_guarded": 0, "kiso6_i16_unguarded": 1,
               "kiso6_i32_guarded": 2, "kiso6_i32_unguarded": 3,
               "kiso7_affine": 4, "kiso7_ids": 5, "kiso8_mxu": 6,
-              "kiso8_mxudef": 7, "kiso8_vpu": 4}
+              "kiso8_mxudef": 7, "kiso8_vpu": 4, "kiso8_mxu_v1": 8,
+              "kiso8_mxudef_v1": 9}
 KISO_U16 = ("kiso6_i16_guarded", "kiso6_i16_unguarded")
 KISO_PADDED_IDS = KISO_U16 + ("kiso6_i32_guarded", "kiso6_i32_unguarded")
 KISO_GUARDED = ("kiso6_i16_guarded", "kiso6_i32_guarded")
-KISO_MMA = {"kiso8_mxu": 2, "kiso8_mxudef": 1}  # role -> TF32 passes
+# role -> TF32 passes; the "_v1" roles run the parent design (timing only)
+KISO_MMA = {"kiso8_mxu": 2, "kiso8_mxudef": 1, "kiso8_mxu_v1": 2, "kiso8_mxudef_v1": 1}
 KISO_BLOCK = 128  # rows of an id-table block and of a u16 base column
 KISO_ID_PAD = 8  # id tables pad to a multiple of 8 blocks (the reference's MB)
 KISO_MMA_K = 8  # entries a row per mma chunk: the mma widths pad to it

@@ -30,10 +30,11 @@ from meshlessmultigridpoisson_torch.probes.kprobe import BAND, K, build_operator
 N, ITERS = 262_144, 20
 # kernel vs plain, relative to max |plain output|: ~70 f32 products summed in
 # another order (a warp-shuffle tree or the tensor cores' adds against
-# torch's sum); "kiso8_mxudef" against its TF32 plain version (the same
-# rounded products)
+# torch's sum); "kiso8_mxudef" and "kiso8_mxudef_v1" against their TF32
+# plain version (the same rounded products)
 TOL = 1e-5
-APPROX = ("kiso8_mxudef",)  # one TF32 pass: not y = A x to f32, no library row
+# one TF32 pass: not y = A x to f32, no library row
+APPROX = ("kiso8_mxudef", "kiso8_mxudef_v1")
 
 
 def log(*a):

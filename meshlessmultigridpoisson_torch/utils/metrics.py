@@ -52,3 +52,32 @@ class Timer:
 
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self.t0
+
+
+def bordered_residual(op, b, b_lag, x, x_lag) -> float:
+    """Relative L1 residual of the bordered fine system, recomputed from
+    (x, x_lag) with the plain f64 gather-sum SpMV on ``x``'s device (an
+    independent check of a solve's reported residual):
+    (||b - A x - lag_col x_lag||_1 + |b_lag - lag_row.x - x_lag|)
+    / (||b||_1 + |b_lag|), Dirichlet rows as identity rows x = g.  ``op`` is
+    the host f64 LevelOperator; without a border the border terms vanish."""
+    import torch
+
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels as gk
+    from meshlessmultigridpoisson_torch.ops.ell import global_cols
+
+    dev = x.device
+
+    def f(v):
+        return torch.as_tensor(v).to(device=dev, dtype=torch.float64)
+
+    dmask = op.dirichlet_mask.to(dev) > 0
+    b, b_lag, x_lag = torch.where(dmask, f(op.dirichlet_values), f(b)), f(b_lag), f(x_lag)
+    y = gk.ell_spmv_plain(f(op.A.vals), global_cols(op.A).to(dev), x)
+    r_lag = torch.zeros((), dtype=torch.float64, device=dev)
+    if op.has_lagrange:
+        y = y + f(op.lag_col) * x_lag
+        r_lag = b_lag - (f(op.lag_row) * x).sum() - x_lag
+    y = torch.where(dmask, x, y)
+    return float(((b - y).abs().sum() + r_lag.abs())
+                 / (b.abs().sum() + b_lag.abs()))

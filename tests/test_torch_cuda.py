@@ -901,6 +901,31 @@ def test_kiso_roles_count_and_match_plain(et, role):
         assert torch.equal(y, gk.ell_spmv(A0, x))
 
 
+@pytest.mark.parametrize("width", [8, 32, 64, 72, 104, 1024])
+@pytest.mark.parametrize("role", sorted(gk.KISO_MMA))
+def test_rowsum_mma_widths_match_plain(role, width):
+    """``ell_rowsum_mma`` (production and parent ``_v1`` roles) at widths
+    that are multiples of 8 other than the kiso operator's 72: width / 8
+    odd (the staged design's two bulk copies a warp) and even (a copy a
+    row into rows of width + 8), 1024 (fewer warps a CTA, to fit shared
+    memory), over 4,112 rows (a last CTA with one warp of rows)."""
+    n, ncols = 4112, 5000
+    g = torch.Generator().manual_seed(width)
+    cols = torch.randint(0, ncols, (n, width), generator=g, dtype=torch.int32)
+    vals = torch.randn(n, width, generator=g)
+    vals[::7, width // 2:] = 0.0  # rows with trailing padding
+    A = gk.KisoEll(vals=vals.cuda(), cols=cols.cuda(), col_base=None, ids=None,
+                   ncols=ncols, role=role)
+    x = _rand(ncols, torch.float32, 29)
+    before = gk.COUNTS[role]
+    y = gk.kiso_spmv(A, x)
+    torch.cuda.synchronize()
+    assert gk.COUNTS[role] == before + 1
+    ref = gk.kiso_spmv_plain(A, x)
+    assert y.shape == ref.shape == (n,)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 def test_ell_spmv_production_width_not_a_multiple_of_8(dtype, tol):
     """The production instances after the kiso axes: the kiso operator's
@@ -926,7 +951,7 @@ def test_kiso_probes_on_card():
     gk.reset_counts()
     res = [p.run(n=16384, iters=2, ell=ell) for p in (kiso6, kiso7, kiso8)]
     assert all(gk.COUNTS[r] > 0 for r in list(gk.KISO_ROLES) + ["spmv4"])
-    assert [len(r["kernels"]) for r in res] == [4, 3, 3]
+    assert [len(r["kernels"]) for r in res] == [4, 3, 5]
     assert res[0]["padded_blocks"] == 0 and res[0]["max_block_span"] <= gk.U16_MAX_SPAN
     for r in [row for p in res for row in p["kernels"].values()]:
         assert 0 < r["bound_ms"] <= 1.05 * r["ms"]

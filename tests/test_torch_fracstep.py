@@ -92,6 +92,7 @@ def _problem_tree(pj) -> dict:
 
 @pytest.fixture(scope="module")
 def jprob():
+    ensure_native_geometry()  # both packages sample their clouds natively
     return jfs.build_fracstep_problem(sizes=SIZES, poly_deg=DEG, config=JConfig())
 
 
@@ -269,6 +270,7 @@ def test_hyperviscous_predictor_matches_reference(jprob, tprob):
     with the -hv nu Lap(Lap u) / lap_scale term, both against the
     reference's to 1e-10."""
     hv = 0.5
+    ensure_native_geometry()  # both packages sample their clouds natively
     jh = jfs.build_fracstep_problem(sizes=SIZES, poly_deg=DEG,
                                     config=JConfig(hyperviscosity=hv))
     th = tfs.build_fracstep_problem(sizes=SIZES, poly_deg=DEG,

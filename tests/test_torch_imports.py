@@ -34,7 +34,7 @@ SLICE_MODULES = (
     "bench", "utils.profiling", "probes.realsparsity", "probes.ktime",
     "probes.kexp", "probes.ksweepprobe", "probes.kstream", "probes.kprobe",
     "probes.chaintime", "probes.kiso6", "probes.kiso7", "probes.kiso8",
-    "probes.launchrank", "probes.blockgraph",
+    "probes.launchrank", "probes.blockgraph", "probes.solve3d",
 )
 
 

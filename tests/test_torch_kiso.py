@@ -143,12 +143,29 @@ def test_kiso7_roles_match_spmv_var(banded, kiso7_ref, role, mode):
     _close(_port(et, role, x)[1], kiso7_ref[mode], 3e-4)
 
 
-@pytest.mark.parametrize("role,mode", [("kiso8_mxu", "mxu"), ("kiso8_vpu", "vpu")])
+@pytest.mark.parametrize("role,mode", [("kiso8_mxu", "mxu"), ("kiso8_vpu", "vpu"),
+                                       ("kiso8_mxu_v1", "mxu")])
 def test_kiso8_roles_match_spmv_var(banded, kiso8_ref, role, mode):
     _, et, x = banded
     A, y = _port(et, role, x)
-    assert A.width % 8 == (0 if role == "kiso8_mxu" else et.width % 8)
+    assert A.width % 8 == (0 if role in gk.KISO_MMA else et.width % 8)
     _close(y, kiso8_ref[mode], 3e-4)
+
+
+@pytest.mark.parametrize("passes", [2, 1])
+def test_kiso8_parent_roles_compute_the_same_function(banded, passes):
+    """The parent design's timing roles (``_v1``) take the same tables and
+    have the same plain version as the production roles of as many TF32
+    passes: only the kernel's design differs."""
+    _, et, x = banded
+    role = {2: "kiso8_mxu", 1: "kiso8_mxudef"}[passes]
+    A, y = _port(et, role, x)
+    A1, y1 = _port(et, role + "_v1", x)
+    assert gk.KISO_MMA[role] == gk.KISO_MMA[role + "_v1"] == passes
+    assert torch.equal(A.vals, A1.vals) and torch.equal(A.cols, A1.cols)
+    np.testing.assert_array_equal(y, y1)
+    assert pf.kiso_bytes(A) == pf.kiso_bytes(A1)
+    assert pf.kiso_flops(A) == pf.kiso_flops(A1)
 
 
 def test_kiso8_mxudef_matches_mxu_def(banded, kiso8_ref):

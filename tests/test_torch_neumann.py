@@ -29,8 +29,6 @@ rounding in another order), both runs below the cap.
 
 import argparse
 import dataclasses
-import os
-import sys
 import warnings
 
 import jax
@@ -214,15 +212,14 @@ def test_slice_cpu_neumann_solve_matches_reference_cli(reference_solve):
 
     # the returned Lagrange unknown closes the border row: the smoke test's
     # independent re-check (plain f64 SpMV, border row included) agrees
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import chip_smoke
+    from meshlessmultigridpoisson_torch.utils.metrics import bordered_residual
 
     assert xl_t.shape == () and xl_t.dtype == torch.float64
     op = prob_t.hierarchy.finest
     b, bl = prob_t.state0.b[-1], prob_t.state0.b_lag[-1]
-    recheck = chip_smoke.bordered_residual(op, b, bl, x_t, xl_t)
+    recheck = bordered_residual(op, b, bl, x_t, xl_t)
     assert recheck < 1e-10, recheck
-    assert chip_smoke.bordered_residual(op, b, bl, x_t, xl_t + 1e-3) > 10 * recheck
+    assert bordered_residual(op, b, bl, x_t, xl_t + 1e-3) > 10 * recheck
 
 
 # ---------------------------------------------------------------------------
