@@ -95,14 +95,14 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    0 elsewhere): none in a V-cycle, whose fine re-solves ride in the fine
    smoother's launch; relative L1 residual < 1e-8, re-checked
    from the returned (x, x_lag) with the plain f64 SpMV, border row
-   included; L1 error < 1e-6.  After the Dirichlet and Neumann paths'
-   counts are read, each timed solve runs four more times, in turns with
-   every ``ell_spmv`` call on the parent design (``spmv_rowwarp``, checked
-   by the counts: no ``spmv6`` or ``spmv8`` launch) and on the new kernel,
-   and the times are printed (each residual < 1e-8); the Neumann timed
-   solve four times more, in turns with the V-cycle's re-solves and pin as
-   launches of their own (``bound2``, ``torch.where``) and fused, each run
-   failing unless its ``bound2`` count is its flow's.  After the exact
+   included; L1 error < 1e-6.  After the Dirichlet path's counts are
+   read, its timed solve runs four more times, in turns with every
+   ``ell_spmv`` call on the parent design (``spmv_rowwarp``, checked by the
+   counts: no ``spmv6`` or ``spmv8`` launch) and on the new kernel, and
+   the times are printed (each residual < 1e-8); the Neumann timed solve
+   twice more, with the V-cycle's re-solves and pin as launches of their
+   own (``bound2``, ``torch.where``), then fused, each run failing unless
+   its ``bound2`` count is its flow's.  After the exact
    path's counts are read, its timed solve runs again with every
    ``sweep6`` sweep on the parent chain (``sweep6_chain``; the run fails
    unless it launched ``sweep6_chain`` and no ``sweep6``), then on
@@ -153,8 +153,34 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    as separate launches (each run failing unless its ``bound2``, ``ppe2``
    and ``ppe2_scatter`` counts are its flow's), printing each run's median
    step time and whether the two sides separate, run by run and round by
-   round;
-5. on the bench's 1M-row operator (5 colors of ~1,640 blocks), the fused
+   round; last, the checkpoint: the state after 2 steps from rest written
+   by ``io.save_state`` and read back by ``load_state``, 2 more steps from
+   each, their fs_residuals and ``u``, ``v`` bit-identical;
+5. the user surfaces, each through its CLI entry point in-process with
+   its counts set to 0 before and read after, every file under a
+   temporary directory removed at the end: ``solve --setup-cache
+   --write-solution`` (square_with_circle, sizes 2500/10000, deg 6,
+   kdtile, 512-row blocks, Neumann) twice, the first run building and
+   saving the host problem ("built and cached"), the second loading it
+   ("loaded", not built), then the same solve without the cache: the
+   three solutions bit-identical, the residual < 1e-8 re-checked with the
+   plain f64 SpMV, the five txt files read back (``read_vector_txt``)
+   equal in both runs and consistent with the record; a cache stamped
+   for other arguments (``--deg 5``) and an unstamped one each refused
+   (SystemExit); ``solve --msh tests/fixtures/square_170.msh
+   tests/fixtures/square_600.msh --neumann --deg 4 --tol 1e-10``: 610
+   fine points, residual < 1e-10 re-checked, L1 within 1% of the
+   reference's host f64 BiCGStab (``MSH_REF_L1``, printed beside
+   ``results/msh_solve_r2.json``'s); ``probe --geom square --sizes 2500
+   --deg 4 --sweeps 1000 --cond`` with every plain version refusing to
+   run: the f64 v2 level, exactly 1000 ``sweep2`` and 1000 ``spmv2``
+   launches and no other sweep or SpMV, its first 100 residuals within
+   1e-10 relative of the host f64 probe on the same level, the time a
+   sweep printed; ``sweep --geoms square square_with_circle
+   concentric_circles --levels 2 --ks 1 --degs 4``: three rows, none in
+   error, each residual < 1e-8 and L1 within 1% of the reference's host
+   solve of its configuration (``SWEEP_REF_L1``); the phase's time;
+6. on the bench's 1M-row operator (5 colors of ~1,640 blocks), the fused
    colored smoother in f32, f64 and bf16 K as on the slice's levels (5
    sweeps, no border) and the storage-order chain (f32, 8,192 blocks)
    against the parent chain as on the slice's levels, then the kernel bench
@@ -164,7 +190,7 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    before it times them): prints its JSON line; checks the SpMV spot
    check, ``stream14``, ``spmv6``, ``sweep6``, ``sweep8`` and
    ``sweep8_percolor`` launched, and every ``pct_of_bound`` <= 105;
-6. on the bench's host operator (built once, before the bench, for the
+7. on the bench's host operator (built once, before the bench, for the
    bench and both probes): ``probes.kexp`` with 3 iterations (``spmv2``,
    ``spmv3`` and ``spmv1`` at 128- and 256-row blocks, ``sweep1`` at 128),
    then ``probes.ksweepprobe`` with 3 sweeps (the four modes of
@@ -173,14 +199,14 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    read after; each probe holds every kernel or mode against its plain
    version before timing it; every role launched, each at or above its
    bound; prints the chain's split per block;
-7. the kernel-generation probe (``meshlessmultigridpoisson_torch.probes.
+8. the kernel-generation probe (``meshlessmultigridpoisson_torch.probes.
    ktime``) in-process on its real 1,048,576-row pattern with 5 iterations
    (counts set to 0 before, read after; the probe holds every kernel
    against its plain version before timing it): ``spmv2`` and ``sweep2``
    at 128- and 256-row blocks (``sweep2`` also against its parent design,
    ``sweep2_tilewalk``, in turns), ``spmv4``, ``sweep4`` and ``sweep5``,
    each launched, each at or above its bound;
-8. the stream probes and the SpMV's gather/reduction split, each
+9. the stream probes and the SpMV's gather/reduction split, each
    in-process at the reference's sizes with its counts set to 0 before and
    read after: ``probes.kstream`` (the four table mixes over [2^18, 128]
    at 1024-4096 tile rows, 8192 for ``f32``; roles ``kstream_*``),
@@ -205,7 +231,7 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    then each production mma role against its parent in turns parent,
    change, change, parent, printed); every role within 1e-5 of max |plain|
    (the one-pass roles of their TF32 plain version);
-9. print a JSON line of per-kernel results, the total time, then, as the
+10. print a JSON line of per-kernel results, the total time, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package next to it, it exits with a
@@ -220,6 +246,7 @@ import argparse
 import dataclasses
 import json
 import contextlib
+import io
 import math
 import os
 import statistics
@@ -353,6 +380,7 @@ NS_SIZES = [170, 600, 2500, 10000]
 NS_STEPS = 12
 NS_AB_STEPS = 6  # steps a run of the NS A/B
 NS_AB_ROUNDS = 2  # rounds of parent, change, change, parent
+NS_CKPT_STEPS = 2  # steps before the checkpoint, and after it from each state
 NS_ROLES = DIRICHLET_ROLES + ("bound2", "ppe2")
 NS_EXPECT_KERNELS = ["v7-exact", "v7-exact", "v7-exact", "v8-colored"]
 # the reference's TPU record of that run (2000 steps; history every 4th step)
@@ -373,6 +401,25 @@ TOL = {("spmv", "f32"): 1e-5, ("spmv", "f64"): 1e-12,
        ("compact", "f32"): 1e-5, ("compact", "f64"): 1e-12,
        ("sweep", "bf16k"): 1e-2, ("stream", "f32"): 0.0}
 PCT_OF_BOUND_MAX = 105.0
+# the user surfaces (phase 5).  Reference values: the reference package's
+# CLI with its host f64 BiCGStab on the same configurations, on the CPU
+# (``--msh``: tol 1e-10, 12 iterations; ``sweep``: tol 1e-8, its rows).
+CACHE_ARGV = ["solve", "--device", "cuda", "--geom", "square_with_circle", "--sizes",
+              "2500", "10000", "--deg", "6", "--ordering", "kdtile", "--block-rows",
+              "512", "--neumann"]
+MSH_FILES = ["tests/fixtures/square_170.msh", "tests/fixtures/square_600.msh"]
+MSH_POINTS = 610
+MSH_REF_L1 = 2.13404311772937e-04
+MSH_RECORD = "results/msh_solve_r2.json"
+SWEEP_GEOMS = ["square", "square_with_circle", "concentric_circles"]
+SWEEP_REF_L1 = {"square": 3.936968915214965e-04,
+                "square_with_circle": 6.946786260074965e-05,
+                "concentric_circles": 1.5070782728599167e-02}
+SURFACE_L1_RTOL = 0.01
+PROBE_SWEEPS = 1000
+PROBE_CHECKED = 100  # history entries held against the plain f64 probe
+PROBE_RTOL = 1e-10
+SOLUTION_FILES = ("x", "y", "solution", "exact", "error")
 
 
 def fail(msg: str) -> int:
@@ -447,6 +494,208 @@ def ns_bound2(inner) -> int:
     """Standalone re-solves of NS steps: one a Krylov solve (mg/krylov.py's
     last) and one a PPE solve (mg/mixed.py's, f64)."""
     return sum(len(step) + 1 for step in inner)
+
+
+@contextlib.contextmanager
+def no_plain_versions(gk):
+    """Every ``*_plain`` function of the kernel module raises while inside:
+    a path run there launched kernels only."""
+    saved = {k: v for k, v in vars(gk).items() if k.endswith("_plain") and callable(v)}
+
+    def refuse(name):
+        def f(*a, **kw):
+            raise AssertionError(f"the plain version {name} ran")
+        return f
+
+    try:
+        for k in saved:
+            setattr(gk, k, refuse(k))
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(gk, k, v)
+
+
+def user_surfaces(cli, gk, launches: dict, card: str, root: str) -> None:
+    """Phase 5: ``solve --setup-cache/--write-solution``, ``solve --msh``,
+    ``probe`` and ``sweep`` through the CLI's entry points on the card, each
+    with its counts set to 0 before it and read after (``launches[path]``);
+    every file under a temporary directory, removed at the end.  Raises
+    AssertionError on the first failed check."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from meshlessmultigridpoisson_torch.io import bundle, read_vector_txt
+    from meshlessmultigridpoisson_torch.ops.smoothers import apply_dirichlet, single_grid_probe
+    from meshlessmultigridpoisson_torch.utils.metrics import bordered_residual
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(msg)
+
+    def run(path, fn, argv):
+        print(f"main path ({path}): python -m meshlessmultigridpoisson_torch.apps.cli "
+              + " ".join(argv), flush=True)
+        gk.reset_counts()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        launches[path] = dict(gk.COUNTS)
+        return out
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_surfaces_")
+    try:
+        # the setup cache: built and saved, then loaded; and the solve without it
+        cache = os.path.join(tmp, "c.npz")
+        runs = []
+        for i in (1, 2):
+            argv = CACHE_ARGV + ["--setup-cache", cache, "--write-solution",
+                                 os.path.join(tmp, f"sol{i}")]
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rec, prob, x, xl = run(f"setup-cache {i}", cli.run_solve, argv)
+            said = [m for m in err.getvalue().splitlines() if m.startswith("setup ")]
+            print(f"setup-cache run {i}: " + "; ".join(said), flush=True)
+            print(rec.to_json(), flush=True)
+            built = any("built and cached" in m for m in said)
+            loaded = any("loaded from" in m for m in said)
+            check(loaded and built == (i == 1),
+                  f"setup-cache run {i}: built {built}, loaded {loaded}: {said}")
+            runs.append((rec, prob, x, xl))
+        rec3, _, x3, xl3 = run("no cache", cli.run_solve, CACHE_ARGV)
+        same = [bool(torch.equal(r[2], x3) and torch.equal(r[3], xl3)) for r in runs]
+        c = runs[1][0].extra["setup_cache"]
+        print(f"setup cache: {c['bytes'] / 1e6:.3f} MB, saved in "
+              f"{runs[0][0].extra['setup_cache']['save_s']:.3f} s, loaded in "
+              f"{c['load_s']:.3f} s; host problem built {runs[0][0].extra['setup_stages_s']['host_problem']:.2f} s "
+              f"(with the save and load), loaded {runs[1][0].extra['setup_stages_s']['host_problem']:.2f} s, "
+              f"without the cache {rec3.extra['setup_stages_s']['host_problem']:.2f} s; "
+              f"x (cached, loaded) bit-identical to the solve without the cache: {same} "
+              f"({card})", flush=True)
+        check(all(same), f"setup cache: solutions not bit-identical to the uncached solve: {same}")
+        rec, prob, x, xl = runs[1]
+        recheck = bordered_residual(prob.hierarchy.levels[-1], prob.state0.b[-1],
+                                    prob.state0.b_lag[-1], x, xl)
+        print(f"setup cache: residual {rec.final_residual:.3e}, re-checked (plain f64 "
+              f"SpMV) {recheck:.3e}, L1 {rec.l1_error:.6e}", flush=True)
+        check(rec.final_residual < 1e-8 and recheck < 1e-8,
+              f"setup cache: residual {rec.final_residual:.3e}, re-checked {recheck:.3e}")
+        n = prob.clouds[-1].n
+        for name in SOLUTION_FILES:
+            a, b = (read_vector_txt(os.path.join(tmp, f"sol{i}", f"{name}.txt"))
+                    for i in (1, 2))
+            check(a.shape == (n,) and np.isfinite(a).all() and np.array_equal(a, b),
+                  f"--write-solution {name}.txt: shape {a.shape}, not {n} finite values "
+                  "equal in both runs")
+        sol, exact, error = (read_vector_txt(os.path.join(tmp, "sol2", f"{k}.txt"))
+                             for k in ("solution", "exact", "error"))
+        print(f"--write-solution: {len(SOLUTION_FILES)} files of {n} values read back; "
+              f"mean error {error.mean():.6e} (record L1 {rec.l1_error:.6e})", flush=True)
+        check(np.allclose(exact, prob.exact, rtol=0, atol=1e-15)
+              and abs(error.mean() - rec.l1_error) <= 1e-12
+              and np.abs(np.abs(sol - exact) - error).max() <= 1e-15,
+              "--write-solution: the files disagree with the record")
+        # a stamp for other arguments, and no stamp, are refused
+        unstamped = os.path.join(tmp, "unstamped.npz")
+        bundle.save_tree(unstamped, "poisson_problem",
+                         bundle.load_tree(cache, "poisson_problem"))
+        for label, argv in (
+                ("--deg 5", [a if a != "6" else "5" for a in CACHE_ARGV]
+                 + ["--setup-cache", cache]),
+                ("no stamp", CACHE_ARGV + ["--setup-cache", unstamped])):
+            try:
+                cli.run_solve(argv)
+            except SystemExit as e:
+                print(f"setup cache, {label}: refused ({str(e).splitlines()[0]})", flush=True)
+            else:
+                raise AssertionError(f"setup cache, {label}: not refused")
+        del runs, rec, prob, x, xl, rec3, x3, xl3
+
+        # --msh: the reference's fixtures
+        argv = ["solve", "--device", "cuda", "--msh",
+                *(os.path.join(root, f) for f in MSH_FILES),
+                "--neumann", "--deg", "4", "--tol", "1e-10"]
+        rec, prob, x, xl = run("msh", cli.run_solve, argv)
+        print(rec.to_json(), flush=True)
+        recheck = bordered_residual(prob.hierarchy.levels[-1], prob.state0.b[-1],
+                                    prob.state0.b_lag[-1], x, xl)
+        with open(os.path.join(root, MSH_RECORD)) as fh:
+            record_l1 = json.load(fh)["l1_error"]
+        print(f"msh: points {rec.config['sizes']}, kinds {rec.extra['level_kernels']}, "
+              f"{rec.cycles} passes, residual {rec.final_residual:.3e} (re-checked "
+              f"{recheck:.3e}), L1 {rec.l1_error:.6e} against the reference's "
+              f"{MSH_REF_L1:.6e} and {MSH_RECORD}'s {record_l1:.6e}", flush=True)
+        check(rec.config["sizes"][-1] == MSH_POINTS,
+              f"msh: fine level {rec.config['sizes'][-1]} points, not {MSH_POINTS}")
+        check(rec.final_residual < 1e-10 and recheck < 1e-10,
+              f"msh: residual {rec.final_residual:.3e}, re-checked {recheck:.3e}")
+        check(abs(rec.l1_error - MSH_REF_L1) <= SURFACE_L1_RTOL * MSH_REF_L1,
+              f"msh: L1 {rec.l1_error:.6e} not within 1% of {MSH_REF_L1:.6e}")
+        del rec, prob, x, xl
+
+        # probe: the f64 class sweep (sweep2) and its matvec (spmv2), no plain version
+        argv = ["probe", "--device", "cuda", "--geom", "square", "--sizes", "2500",
+                "--deg", "4", "--sweeps", str(PROBE_SWEEPS), "--cond"]
+        with no_plain_versions(gk):
+            rec, prob, x, hist = run("probe", cli.run_probe, argv)
+        n_probe = launches["probe"]
+        got = {r: n_probe[r] for r in ("sweep2", "spmv2")}
+        others = {r: v for r, v in n_probe.items() if v and r not in ("sweep2", "spmv2",
+                                                                    "bound2")}
+        op = prob.hierarchy.finest
+        x0 = apply_dirichlet(op, prob.state0.x[-1], coarse=False)
+        _, href = single_grid_probe(op, x0, prob.state0.b[-1], sweeps=PROBE_CHECKED)
+        href = href.numpy()
+        dev_max = float(np.max(np.abs(hist[:PROBE_CHECKED] - href) / np.abs(href)))
+        print(f"probe: {rec.config['sizes']} points, kinds {rec.extra['level_kernels']}, "
+              f"x {x.dtype} on {x.device}; launches {got} (others {others}); "
+              f"{rec.extra['ms_a_sweep']:.4f} ms a sweep with its residual "
+              f"({PROBE_SWEEPS} sweeps in {rec.wall_time_s:.3f} s); history "
+              f"{hist[0]:.6e} .. {hist[-1]:.6e}, L1 {rec.l1_error:.6e}, cond "
+              f"{rec.extra['cond_L']:.6e}; first {PROBE_CHECKED} entries against the "
+              f"host f64 probe: largest relative deviation {dev_max:.3e} ({card})",
+              flush=True)
+        check(rec.extra["level_kernels"] == ["v2-fallback"] and x.dtype == torch.float64
+              and x.is_cuda, "probe: not the f64 v2 level on the card")
+        check(got == {"sweep2": PROBE_SWEEPS, "spmv2": PROBE_SWEEPS} and not others,
+              f"probe: launches {got}, others {others}")
+        check(dev_max <= PROBE_RTOL, f"probe: history deviates {dev_max:.3e}")
+        check(np.isfinite(hist).all() and math.isfinite(rec.extra["cond_L"]),
+              "probe: history or cond not finite")
+        del rec, prob, x, hist
+
+        # sweep: one row a geometry
+        out = os.path.join(tmp, "sweep.json")
+        argv = ["sweep", "--device", "cuda", "--geoms", *SWEEP_GEOMS, "--levels", "2",
+                "--ks", "1", "--degs", "4", "--out", out]
+        try:
+            rows = run("sweep", cli.run_sweep, argv)
+        except SystemExit as e:
+            raise AssertionError(f"sweep: {e}") from None
+        with open(out) as fh:
+            check(json.load(fh) == rows, "sweep: the rows written differ")
+        check(len(rows) == len(SWEEP_GEOMS) and not any("error" in r for r in rows),
+              f"sweep: {len(rows)} rows, errors {[r.get('error') for r in rows]}")
+        for r in rows:
+            geom, ref = r["config"]["geom"], SWEEP_REF_L1[r["config"]["geom"]]
+            n_row = r["extra"].get("launches", {})
+            print(f"sweep {geom}: points {r['config'].get('sizes', r['config'])}, kinds "
+                  f"{r['extra'].get('level_kernels')}, "
+                  f"{r['cycles']} passes, residual {r['final_residual']:.3e}, L1 "
+                  f"{r['l1_error']:.6e} against the reference's {ref:.6e} "
+                  f"({r['l1_error'] / ref:.6f}x), {r['elapsed']:.2f} s", flush=True)
+            check(r["final_residual"] < 1e-8, f"sweep {geom}: residual {r['final_residual']}")
+            check(abs(r["l1_error"] - ref) <= SURFACE_L1_RTOL * ref,
+                  f"sweep {geom}: L1 {r['l1_error']:.6e} not within 1% of {ref:.6e}")
+            check(any(n_row[k] for k in n_row if k.startswith("sweep"))
+                  and any(n_row[k] for k in n_row if k.startswith("spmv")),
+                  f"sweep {geom}: no sweep or SpMV launched: {n_row}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase-5 user surfaces: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
 
 def main(argv=None) -> int:
@@ -1149,10 +1398,10 @@ def main(argv=None) -> int:
             return fail(f"{path}: re-checked residual {recheck:.3e} >= 1e-8")
         if not rec.l1_error < 1e-6:
             return fail(f"{path}: l1_error {rec.l1_error:.3e} >= 1e-6")
-        if path in ("dirichlet", "neumann"):
-            # the timed solve with every ell_spmv on the parent design (the
-            # only kernel these paths changed), in turns parent, change,
-            # change, parent
+        if path == "dirichlet":
+            # the timed solve with every ell_spmv on the parent design, in
+            # turns parent, change, change, parent (the Neumann path's A/B
+            # was dropped for time; PERF.md keeps its results)
             walls, cycles = [], []
             for side in ("parent", "change", "change", "parent"):
                 with parent_spmv() if side == "parent" else contextlib.nullcontext():
@@ -1169,10 +1418,10 @@ def main(argv=None) -> int:
             del r_ab
         if path == "neumann":
             # the compact_rows fold: the timed solve with the V-cycle's
-            # re-solves as launches of their own, in turns parent, change,
-            # change, parent; each run's counts show which flow ran
+            # re-solves as launches of their own, then fused (one run each,
+            # cut for time); each run's counts show which flow ran
             walls, cycles, b2 = [], [], []
-            for side in ("parent", "change", "change", "parent"):
+            for side in ("parent", "change"):
                 with unfused() if side == "parent" else contextlib.nullcontext():
                     r_ab, *_ = cli.run_solve(argv, problem=prob)
                     torch.cuda.synchronize()
@@ -1187,8 +1436,8 @@ def main(argv=None) -> int:
                 walls.append(r_ab.wall_time_s)
                 cycles.append(r_ab.cycles)
                 b2.append(n_ab["bound2"])
-            print(f"{path}: timed solve, V-cycle re-solves separate / fused / fused / "
-                  "separate " + " / ".join(f"{w:.4f}" for w in walls) + f" s (passes "
+            print(f"{path}: timed solve, V-cycle re-solves separate / fused "
+                  + " / ".join(f"{w:.4f}" for w in walls) + f" s (passes "
                   f"{cycles}, bound2 launches {b2}) ({card})", flush=True)
             del r_ab
         if path == "exact":  # the timed solve on the parent chain, in turns
@@ -1474,10 +1723,43 @@ def main(argv=None) -> int:
     # the compact_rows fold against its parent flow
     ns_ab("re-solves and matvec tail fused / separate", unfused, NS_AB_ROUNDS,
           fold_flow)
-    del rec, prob, last, gfs
+
+    # the checkpoint: a state saved and loaded back steps as the state itself
+    import shutil
+    import tempfile
+
+    from meshlessmultigridpoisson_torch.io import load_state, save_state
+
+    state, _, _ = run_gpu(prob, dev, steps=NS_CKPT_STEPS, t=gfs)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ns_")
+    try:
+        ckpt = save_state(os.path.join(tmp, "state"), state)
+        ckpt_mb = os.path.getsize(ckpt) / 1e6
+        loaded = load_state(ckpt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = []
+    for s in (state, loaded):
+        s, res = fracstep_gpu.state_to(s, dev), []
+        for _ in range(NS_CKPT_STEPS):
+            s, r = fracstep_gpu.timestep_gpu(gfs, s)
+            res.append(float(r))
+        after.append((res, s.u.cpu(), s.v.cpu()))
+    (ra, ua, va), (rb, ub, vb) = after
+    same = ra == rb and torch.equal(ua, ub) and torch.equal(va, vb)
+    print(f"ns: checkpoint after {NS_CKPT_STEPS} steps ({ckpt_mb:.3f} MB), "
+          f"{NS_CKPT_STEPS} more steps from the state and from the loaded one: "
+          f"fs_residual {ra} / {rb}, u and v bit-identical: {same}", flush=True)
+    if not same:
+        return fail("ns: the steps from the loaded checkpoint differ")
+    del rec, prob, last, gfs, state, loaded, after
     torch.cuda.empty_cache()
 
-    # ---- 5. the kernel bench -------------------------------------------------
+    # ---- 5. the user surfaces --------------------------------------------------
+    user_surfaces(cli, gk, launches, card, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.empty_cache()
+
+    # ---- 6. the kernel bench -------------------------------------------------
     t0 = time.perf_counter()
     bench_op = bench.build_operator()
     print(f"bench operator (host, shared by the bench, kexp and ksweepprobe): "
@@ -1544,7 +1826,7 @@ def main(argv=None) -> int:
                 **{k: r[k] for k in ("max_abs_err", "rel_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}))
 
-    # ---- 6. kexp and the sweep probe on the bench's operator ------------------
+    # ---- 7. kexp and the sweep probe on the bench's operator ------------------
     print("main path (kexp): python -m meshlessmultigridpoisson_torch.probes.kexp "
           f"{bench.N} {KEXP_ITERS}", flush=True)
     gk.reset_counts()
@@ -1567,7 +1849,7 @@ def main(argv=None) -> int:
     del res, bench_op
     torch.cuda.empty_cache()
 
-    # ---- 7. the kernel-generation probe --------------------------------------
+    # ---- 8. the kernel-generation probe --------------------------------------
     print("main path (ktime): python -m meshlessmultigridpoisson_torch.probes.ktime "
           f"{KTIME_N} {KTIME_ITERS}", flush=True)
     gk.reset_counts()
@@ -1589,7 +1871,7 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- 8. the stream probes and the SpMV's gather/reduction split ------------
+    # ---- 9. the stream probes and the SpMV's gather/reduction split ------------
     stream_tol = dict.fromkeys(KSTREAM_ROLES + CHAIN_ROLES + ("kprobe_stream",),
                                TOL[("stream", "f32")])
     spmv_tol = dict.fromkeys(KPROBE_ROLES[1:] + KISO6_ROLES + KISO7_ROLES + KISO8_ROLES,
@@ -1641,7 +1923,7 @@ def main(argv=None) -> int:
         del res
         torch.cuda.empty_cache()
 
-    # ---- 9. results ----------------------------------------------------------
+    # ---- 10. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
         by_path = {p: n[role] for p, n in launches.items()}

@@ -1,4 +1,6 @@
-"""Command-line interface of the port: the ``solve`` and ``ns`` sub-commands.
+"""Command-line interface of the port: ``solve``, ``ns``, ``probe``,
+``sweep`` and ``preprocess`` (every flag of the reference package's CLI,
+``--device`` in place of its ``--platform``).
 
     python -m meshlessmultigridpoisson_torch.apps.cli solve --device cuda \\
         --geom square_with_circle --sizes 2500 10000 35000 150000 --deg 6 \\
@@ -27,11 +29,19 @@ program's default run): the fractional-step Kovasznay flow, f64 host setup
 device timesteps, each with an f32 predictor/corrector and the f64
 compatible PPE solved by ``mg/mixed.solve_mixed`` to ``--ppe-tol``.
 
+``solve --setup-cache PATH`` keeps the host problem in a stamped file
+(io/bundle.py), ``--write-solution DIR`` writes the reference's txt files,
+``--msh`` reads Gmsh meshes; ``--solver`` / ``--cycles`` run the
+reference's host f64 solvers (``--device cpu`` only).  ``probe``: the
+single-grid smoother probe on one level, on the device the f64 class
+sweep; ``sweep``: the reference's parameter grid, a ``solve`` a row;
+``preprocess``: a stamped bundle of the hierarchy and clouds.
+
 ``--device cuda`` runs the CUDA kernels and refuses to start without a
 card; ``--device cpu`` runs the same flow through the kernels' plain
 PyTorch versions.  The printed JSON SolveRecord carries the level kernel
 kinds, the device name and each kernel role's launch count in the timed
-solve (``ns``: in the time loop).
+solve (``ns``: in the time loop; ``probe``: in its sweeps).
 """
 
 from __future__ import annotations
@@ -39,15 +49,31 @@ from __future__ import annotations
 import argparse
 import sys
 
+from meshlessmultigridpoisson_torch.utils.metrics import Timer
 
-def _parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="meshlessmultigridpoisson-torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("solve", help="manufactured-solution Poisson solve")
+DEVICE_HELP = ("cuda: CUDA kernels on the first card (no card: error); cpu: the "
+               "kernels' plain versions")
+
+
+def _positive(v: str) -> int:
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"{v} is not a positive count")
+    return n
+
+
+def _common(p) -> None:
+    """The grid flags of ``solve``, ``probe`` and ``preprocess`` (the
+    reference's own set, so its command lines parse here)."""
     p.add_argument("--geom", default="square",
                    choices=["square", "square_with_circle",
                             "concentric_circles", "box3d"])
     p.add_argument("--sizes", type=int, nargs="+", default=[600, 2500])
+    p.add_argument("--msh", nargs="+", default=None, metavar="FILE",
+                   help="Gmsh v2 .msh files, one a level (sorted by size), replacing "
+                        "the generated clouds (the reference's own path, "
+                        "testing_functions.cpp:333); --geom then selects the "
+                        "manufactured solution and boundary data")
     p.add_argument("--deg", type=int, default=4)
     p.add_argument("--k", type=int, default=1, help="manufactured wavenumber")
     p.add_argument("--neumann", action="store_true",
@@ -58,10 +84,31 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--block-rows", type=int, default=256,
                    help="(block, class) assembly block size; use 512 with "
                         "kdtile at 100k+ points")
+    p.add_argument("--out", default=None,
+                   help="solve, probe: write the JSON SolveRecord here; "
+                        "preprocess: the bundle (default bundle.npz)")
+    p.add_argument("--write-solution", default=None, metavar="DIR",
+                   help="solve: write x/y/solution/exact/error txt files, one "
+                        "value a line (write_temp_contour, "
+                        "testing_functions.cpp:285-310; Neumann: the solution "
+                        "shifted to the exact solution's mean)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=DEVICE_HELP)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="meshlessmultigridpoisson-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("solve", help="manufactured-solution Poisson solve")
+    _common(p)
     p.add_argument("--tol", type=float, default=1e-8)
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda: CUDA kernels on the first card (no card: "
-                        "error); cpu: the kernels' plain versions")
+    p.add_argument("--cycles", type=_positive, default=None,
+                   help="host f64 path (--device cpu only): this many V-cycles "
+                        "instead of a solve to --tol")
+    p.add_argument("--solver", default=None, choices=["bicgstab", "vcycle"],
+                   help="host f64 path (--device cpu only): V-cycle-preconditioned "
+                        "BiCGStab (300 iterations at most) or V-cycles to --tol "
+                        "(2000 at most); without it (and --cycles) the "
+                        "mixed-precision solve runs on --device")
     p.add_argument("--fast-k", action="store_true",
                    help="store the one-shot sweep K tensor in bfloat16: "
                         "~34%% fewer sweep HBM bytes; smoother fixed point "
@@ -79,7 +126,12 @@ def _parser() -> argparse.ArgumentParser:
                         "and the device busy share to the record, and a "
                         "per-level table (sweep/matvec ms, nnz/s, modelled "
                         "GB/s, bounds) and the solve's effective nnz/s")
-    p.add_argument("--out", default=None, help="write the JSON SolveRecord here")
+    p.add_argument("--setup-cache", default=None, metavar="PATH",
+                   help="keep the host setup (hierarchy, clouds, right-hand "
+                        "side, exact solution) in PATH (.npz appended if "
+                        "missing): built and saved on first use, loaded after; "
+                        "a cache stamped for other arguments, or not stamped, "
+                        "is refused")
 
     pn = sub.add_parser("ns", help="fractional-step Navier-Stokes (Kovasznay)")
     pn.add_argument("--sizes", type=int, nargs="+", default=[170, 600, 2500, 10000])
@@ -99,15 +151,51 @@ def _parser() -> argparse.ArgumentParser:
                     help="Gmsh v2 .msh files, coarse -> fine, replacing "
                          "--sizes (the reference's own NS input path, "
                          "FractionalStepSim.cpp:190-199)")
-    pn.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="cuda: CUDA kernels on the first card (no card: "
-                         "error); cpu: the kernels' plain versions")
+    pn.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=DEVICE_HELP)
     pn.add_argument("--profile", action="store_true",
                     help="after the run, run 3 more steps under torch.profiler "
                          "and attach per-kernel device time and the device "
                          "busy share to the record")
     pn.add_argument("--out", default=None, help="write the JSON SolveRecord here")
+
+    pw = sub.add_parser("sweep", help="the reference's run_tests parameter sweep")
+    pw.add_argument("--geoms", nargs="+",
+                    default=["square", "square_with_circle", "concentric_circles"])
+    pw.add_argument("--levels", type=int, nargs="+", default=[2, 3])
+    pw.add_argument("--ks", type=int, nargs="+", default=[1, 2])
+    pw.add_argument("--degs", type=int, nargs="+", default=[4])
+    pw.add_argument("--cycles", type=int, default=100,
+                    help="unused, as in the reference: every row solves to 1e-8")
+    pw.add_argument("--out", default="sweep_results.json")
+    pw.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda: each row the mixed-precision solve on the card "
+                         "(no card: error); cpu: each row the host f64 BiCGStab")
+
+    pb = sub.add_parser("probe", help="single-grid raw-smoother convergence probe "
+                                      "(testGmshSingleGrid, testing_functions.cpp:422-479)")
+    _common(pb)
+    pb.add_argument("--sweeps", type=_positive, default=1000)
+    pb.add_argument("--cond", action="store_true",
+                    help="also estimate cond(A) of the effectively solved "
+                         "(pinned-Dirichlet) system, host f64; the reference "
+                         "program's cond_L (grid.cpp:152) conditions the raw "
+                         "assembled matrix instead")
+
+    pp = sub.add_parser("preprocess", help="build the host setup and save it as a "
+                                           "stamped bundle (hierarchy and clouds)")
+    _common(pp)
     return ap
+
+
+def _log(m) -> None:
+    print(m, file=sys.stderr, flush=True)
+
+
+def _args(argv, cmd: str):
+    args = _parser().parse_args(argv)
+    if args.cmd != cmd:
+        raise SystemExit(f"run_{cmd} takes the {cmd} sub-command, not {args.cmd}")
+    return args
 
 
 def _device(name: str):
@@ -176,6 +264,97 @@ def _device_profile(solve, dev) -> dict:
             "launch_shapes": launches}
 
 
+def _setup_build_config(args) -> dict:
+    """The arguments that determine a setup bundle's contents (the
+    reference's keys, its ``cli.py:178-189``): stamped into every bundle
+    and checked on load."""
+    return dict(geom=args.geom, sizes=list(args.sizes), deg=args.deg, k=args.k,
+                neumann=bool(args.neumann), seed=args.seed, msh=list(args.msh or []),
+                ordering=args.ordering, block_rows=args.block_rows)
+
+
+def _make_problem(args, dev, sizes=None, msh=None):
+    from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
+
+    return make_poisson_problem(
+        args.geom, sizes=list(sizes or args.sizes), poly_deg=args.deg, k1=args.k,
+        neumann=args.neumann, seed=args.seed, ordering=args.ordering,
+        block_rows=args.block_rows, device=dev, msh_files=msh or args.msh)
+
+
+def _build_problem(args, dev):
+    """(host problem, setup-cache record or None).  With ``--setup-cache``:
+    the cache loaded if it exists, else built, saved and loaded back, so a
+    first-use run and a cached run solve the same bits."""
+    import os
+
+    from meshlessmultigridpoisson_torch.io import bundle
+
+    if not args.setup_cache:
+        return _make_problem(args, dev), None
+    path = bundle.npz_path(args.setup_cache)
+    cfg = _setup_build_config(args)
+    info = {"path": path, "built": not os.path.exists(path)}
+    if info["built"]:
+        prob = _make_problem(args, dev)
+        with Timer() as t_save:
+            bundle.save_problem(path, prob, build_config=cfg)
+        info["save_s"] = t_save.elapsed
+        _log(f"setup built and cached to {path} ({t_save.elapsed:.2f} s to save)")
+    with Timer() as t_load:
+        try:
+            prob = bundle.load_problem(path, cfg)
+        except bundle.StampError as e:
+            raise SystemExit(f"--setup-cache: {e}") from None
+    info.update(load_s=t_load.elapsed, bytes=os.path.getsize(path))
+    _log(f"setup loaded from {path} ({info['bytes'] / 1e9:.3f} GB in {t_load.elapsed:.2f} s)")
+    return prob, info
+
+
+def _write_solution(outdir: str, prob, x) -> None:
+    """Per-point txt files (write_temp_contour, testing_functions.cpp:285-310):
+    x, y, solution, exact and error on the ordered fine cloud; a Neumann
+    solution shifted to the exact solution's mean."""
+    import os
+
+    import numpy as np
+
+    from meshlessmultigridpoisson_torch.io import write_vector_txt
+
+    os.makedirs(outdir, exist_ok=True)
+    sol = prob.hierarchy.finest.to_logical(x.cpu().double()).numpy()
+    exact = prob.exact
+    if prob.neumann:
+        sol = sol + (exact.mean() - sol.mean())
+    pts = prob.clouds[-1].points
+    for name, v in (("x", pts[:, 0]), ("y", pts[:, 1]), ("solution", sol),
+                    ("exact", exact), ("error", np.abs(sol - exact))):
+        write_vector_txt(v, os.path.join(outdir, f"{name}.txt"))
+
+
+def _solve_host(args, prob, rec):
+    """The reference's host f64 solvers (its ``cli.py:380-397``) on the
+    host problem: ``--cycles`` V-cycles, or BiCGStab, or V-cycles to
+    ``--tol``.  Returns (x, x_lag) of the fine level."""
+    from meshlessmultigridpoisson_torch.mg.krylov import solve_bicgstab
+    from meshlessmultigridpoisson_torch.mg.vcycle import run_v_cycles, solve_to_tolerance
+
+    with Timer() as t:
+        if args.cycles:
+            state, hist = run_v_cycles(prob.hierarchy, prob.state0, args.cycles)
+            rec.residual_history = hist.tolist()
+            rec.cycles = args.cycles
+            rec.final_residual = rec.residual_history[-1]
+        else:
+            solve = solve_bicgstab if args.solver == "bicgstab" else solve_to_tolerance
+            cap = {"max_iters": 300} if args.solver == "bicgstab" else {"max_cycles": 2000}
+            state, it, resid = solve(prob.hierarchy, prob.state0, tol=args.tol, **cap)
+            rec.cycles = int(it)
+            rec.final_residual = float(resid)
+    rec.wall_time_s = t.elapsed
+    return state.x[-1], state.x_lag[-1]
+
+
 def run_solve(argv=None, problem=None, use_v6=None):
     """Parse ``solve`` arguments and run it; returns (record, problem, x64,
     x_lag64): the f64 solution in the fine level's permuted padded rows and
@@ -184,112 +363,129 @@ def run_solve(argv=None, problem=None, use_v6=None):
     repacked instead of built again.  ``use_v6``: the repack's knob
     (``mg.gpu_backend.runs_v2``, the reference's ``tpu_hierarchy(use_v6=)``):
     False runs every level on the v2-fallback kernels (class SOR, no K);
-    the reference CLI has no flag for it."""
+    the reference CLI has no flag for it.  ``--solver`` / ``--cycles`` run
+    the host f64 solvers instead, on ``--device cpu`` only."""
     import torch
 
-    from meshlessmultigridpoisson_torch.mg import mixed
     from meshlessmultigridpoisson_torch.mg.gpu_backend import (
-        col_formats,
         gpu_hierarchy,
         gpu_level_from_operator,
     )
-    from meshlessmultigridpoisson_torch.models.poisson import (
-        fine_rhs,
-        l1_error,
-        make_poisson_problem,
-    )
-    from meshlessmultigridpoisson_torch.ops import gpu_kernels
-    from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord, Timer
+    from meshlessmultigridpoisson_torch.models.poisson import fine_rhs, l1_error
+    from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord
 
-    args = _parser().parse_args(argv)
+    args = _args(argv, "solve")
+    host = bool(args.cycles) or args.solver is not None
+    if host and args.device != "cpu":
+        raise SystemExit("--solver and --cycles select the host f64 solvers, which "
+                         "run with --device cpu only; on the card the solve is the "
+                         "mixed-precision defect correction (drop them)")
     dev = _device(args.device)
-    log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
     if dev.type == "cuda":  # the record's peak is this run's
         torch.cuda.reset_peak_memory_stats(dev)
 
+    cache = None
     with Timer() as t_setup:
         with Timer() as t_host:
-            prob = problem or make_poisson_problem(
-                args.geom, sizes=list(args.sizes), poly_deg=args.deg, k1=args.k,
-                neumann=args.neumann, seed=args.seed, ordering=args.ordering,
-                block_rows=args.block_rows, device=dev,
-            )
-        ghier = gpu_hierarchy(prob.hierarchy, dev, sweep_order=args.sweep_order,
-                              k_dtype=torch.bfloat16 if args.fast_k else None,
-                              use_v6=use_v6)
-        # the f64 outer operator takes the fine level's matvec role
-        op64 = gpu_level_from_operator(prob.hierarchy.levels[-1], dev,
-                                       dtype=torch.float64, sweep=False,
-                                       sweep_order=args.sweep_order, use_v6=use_v6)
-        # the solve's right-hand side, its pushdown on the device's f64 tables
-        b = fine_rhs(op64, prob.source, prob.neumann)
-        bl = prob.state0.b_lag[-1].to(dev)
-        _sync(dev)
-    log(f"setup: {t_setup.elapsed:.1f}s")
+            if problem is None:
+                problem, cache = _build_problem(args, dev)
+            prob = problem
+        if not host:
+            ghier = gpu_hierarchy(prob.hierarchy, dev, sweep_order=args.sweep_order,
+                                  k_dtype=torch.bfloat16 if args.fast_k else None,
+                                  use_v6=use_v6)
+            # the f64 outer operator takes the fine level's matvec role
+            op64 = gpu_level_from_operator(prob.hierarchy.levels[-1], dev,
+                                           dtype=torch.float64, sweep=False,
+                                           sweep_order=args.sweep_order, use_v6=use_v6)
+            # the solve's right-hand side, its pushdown on the device's f64 tables
+            b = fine_rhs(op64, prob.source, prob.neumann)
+            bl = prob.state0.b_lag[-1].to(dev)
+            _sync(dev)
+    _log(f"setup: {t_setup.elapsed:.1f}s")
 
     device_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu")
     rec = SolveRecord(
         name=f"poisson-{args.geom}-{dev.type}",
         config=dict(sizes=[c.n for c in prob.clouds], deg=args.deg, k=args.k,
-                    neumann=args.neumann, solver="mixed-defect", tol=args.tol,
-                    platform=dev.type, fast_k=args.fast_k,
+                    neumann=args.neumann,
+                    solver="fixed-cycles" if args.cycles else args.solver or "mixed-defect",
+                    tol=args.tol, platform=dev.type, msh=args.msh, fast_k=args.fast_k,
                     sweep_order=args.sweep_order, ordering=args.ordering,
                     block_rows=args.block_rows),
     )
+    rec.extra["setup_time_s"] = t_setup.elapsed
+    # the host problem's build (0 when ``problem`` was passed; a cache's
+    # load), the rest is the repack to the device and the right-hand side
+    rec.extra["setup_stages_s"] = {"host_problem": t_host.elapsed,
+                                   "repack": t_setup.elapsed - t_host.elapsed}
+    if cache is not None:
+        rec.extra["setup_cache"] = cache
+    rec.extra["device"] = device_name
+    if host:
+        x, xl = _solve_host(args, prob, rec)
+    else:
+        x, xl, rerun = _solve_device(args, rec, dev, ghier, op64, b, bl)
+    rec.l1_error = l1_error(prob, x)
+    if args.write_solution:
+        _write_solution(args.write_solution, prob, x)
+    if args.profile and (host or dev.type != "cuda"):
+        rec.extra["profile"] = {"device_busy_share": "not measured (no CUDA device)"}
+        rec.extra["per_level"] = "not measured (no CUDA device)"
+    elif args.profile:
+        from meshlessmultigridpoisson_torch.utils.profiling import (
+            attach_throughput,
+            profile_hierarchy,
+        )
+
+        rec.extra["profile"] = _device_profile(rerun, dev)
+        rec.extra["per_level"] = profile_hierarchy(ghier)
+        attach_throughput(rec, ghier)
+    if args.out:
+        rec.save(args.out)
+    return rec, prob, x, xl
+
+
+def _solve_device(args, rec, dev, ghier, op64, b, bl):
+    """The mixed-precision defect correction on ``dev``: one untimed outer
+    pass, then the timed solve; fills the record, returns (x, x_lag, a
+    function that runs the timed solve again)."""
+    import torch
+
+    from meshlessmultigridpoisson_torch.mg import mixed
+    from meshlessmultigridpoisson_torch.mg.gpu_backend import col_formats
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels
+
     rec.extra["level_kernels"] = [lv.kernel_kind for lv in ghier.levels]
     rec.extra["spmv_col_formats"] = col_formats(ghier, op64)
     rec.extra["level_k_dtypes"] = [  # None: a v2-fallback level holds no K
         str(lv.sweep.kT.dtype) if isinstance(lv.sweep, gpu_kernels.BlockSweep) else None
         for lv in ghier.levels]
-    log(f"level kernels: {rec.extra['level_kernels']}")
+    _log(f"level kernels: {rec.extra['level_kernels']}")
     hd = mixed.defect_hierarchy(ghier)
     x0 = torch.zeros(op64.n_pad, dtype=torch.float64, device=dev)
     xl0 = torch.zeros((), dtype=torch.float64, device=dev)
 
     # untimed pass: one outer step (first launches, library load)
     with Timer() as t_first:
-        mixed.solve_mixed_stepped(op64, hd, x0, xl0, b, bl, tol=args.tol,
-                                  max_outer=1)
+        mixed.solve_mixed_stepped(op64, hd, x0, xl0, b, bl, tol=args.tol, max_outer=1)
         _sync(dev)
-    log(f"first run (1 outer pass): {t_first.elapsed:.1f}s")
+    _log(f"first run (1 outer pass): {t_first.elapsed:.1f}s")
 
     before = dict(gpu_kernels.COUNTS)
     with Timer() as t:
         x, xl, it, res = mixed.solve_mixed_stepped(
-            op64, hd, x0, xl0, b, bl, tol=args.tol, log=log)
+            op64, hd, x0, xl0, b, bl, tol=args.tol, log=_log)
         _sync(dev)
     rec.wall_time_s = t.elapsed
     rec.cycles = int(it)
     rec.final_residual = float(res)
     rec.extra["launches"] = {k: v - before[k] for k, v in gpu_kernels.COUNTS.items()}
-    rec.extra["setup_time_s"] = t_setup.elapsed
-    # the host problem's build (0 when ``problem`` was passed), the rest is
-    # the repack to the device and the right-hand side
-    rec.extra["setup_stages_s"] = {"host_problem": t_host.elapsed,
-                                   "repack": t_setup.elapsed - t_host.elapsed}
     rec.extra["first_run_s"] = t_first.elapsed
     if dev.type == "cuda":  # the tensors of setup and both solves
         rec.extra["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    rec.extra["device"] = device_name
-    rec.l1_error = l1_error(prob, x)
-    if args.profile:
-        rec.extra["profile"] = _device_profile(
-            lambda: mixed.solve_mixed_stepped(op64, hd, x0, xl0, b, bl,
-                                              tol=args.tol), dev)
-        if dev.type == "cuda":
-            from meshlessmultigridpoisson_torch.utils.profiling import (
-                attach_throughput,
-                profile_hierarchy,
-            )
-
-            rec.extra["per_level"] = profile_hierarchy(ghier)
-            attach_throughput(rec, ghier)
-        else:
-            rec.extra["per_level"] = "not measured (no CUDA device)"
-    if args.out:
-        rec.save(args.out)
-    return rec, prob, x, xl
+    return x, xl, lambda: mixed.solve_mixed_stepped(op64, hd, x0, xl0, b, bl, tol=args.tol)
 
 
 def run_ns(argv=None):
@@ -310,13 +506,11 @@ def run_ns(argv=None):
         timestep_gpu,
     )
     from meshlessmultigridpoisson_torch.ops import gpu_kernels
-    from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord, Timer
+    from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord
 
-    args = _parser().parse_args(argv)
-    if args.cmd != "ns":
-        raise SystemExit("run_ns takes the ns sub-command")
+    args = _args(argv, "ns")
     dev = _device(args.device)
-    log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
+    log = _log
     if args.reference_ppe:
         raise NotImplementedError(
             "the device fractional-step path implements the compatible "
@@ -394,12 +588,128 @@ def run_ns(argv=None):
     return rec, prob, {k: v.cpu() for k, v in last.items()}
 
 
+def run_probe(argv=None):
+    """Parse ``probe`` arguments and run it (the reference's ``cli.py:542-585``,
+    testGmshSingleGrid): one level at the largest ``--sizes`` (or the last
+    ``--msh``), x pinned to the Dirichlet data, ``--sweeps`` single sweeps
+    of the class-ordered SOR (then the border relax and the Neumann
+    re-solve), the relative L1 residual before each.  On ``--device`` the
+    level is repacked in f64 as a v2 level (``class_sor_sweep``, role
+    ``sweep2``; its matvec ``ell_spmv``, role ``spmv2``).  Returns (record,
+    problem, x, history as numpy)."""
+    import torch
+
+    from meshlessmultigridpoisson_torch.mg.gpu_backend import gpu_level_from_operator
+    from meshlessmultigridpoisson_torch.models.poisson import l1_error
+    from meshlessmultigridpoisson_torch.ops import gpu_kernels
+    from meshlessmultigridpoisson_torch.ops.smoothers import (
+        apply_dirichlet,
+        condition_estimate,
+        single_grid_probe,
+    )
+    from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord
+
+    args = _args(argv, "probe")
+    dev = _device(args.device)
+    with Timer() as t_setup:
+        prob = _make_problem(args, dev, sizes=[max(args.sizes)],
+                             msh=args.msh and [args.msh[-1]])
+        op = prob.hierarchy.finest
+        level = gpu_level_from_operator(op, dev, dtype=torch.float64, use_v6=False)
+        x0 = apply_dirichlet(op, prob.state0.x[-1], coarse=False).to(dev)
+        b = prob.state0.b[-1].to(dev)
+        _sync(dev)
+    rec = SolveRecord(
+        name=f"probe-{args.geom}-{dev.type}",
+        config=dict(sizes=[c.n for c in prob.clouds], deg=args.deg, k=args.k,
+                    neumann=args.neumann, sweeps=args.sweeps, platform=dev.type,
+                    msh=args.msh, ordering=args.ordering, block_rows=args.block_rows))
+    before = dict(gpu_kernels.COUNTS)
+    with Timer() as t:
+        x, hist = single_grid_probe(level, x0, b, sweeps=args.sweeps)
+        hist = hist.cpu().numpy()  # the history's one read
+    rec.wall_time_s = t.elapsed
+    rec.residual_history = hist[:: max(1, len(hist) // 1000)].tolist()
+    rec.final_residual = float(hist[-1])
+    rec.cycles = args.sweeps
+    rec.l1_error = l1_error(prob, x)
+    rec.extra.update(
+        setup_time_s=t_setup.elapsed, level_kernels=[level.kernel_kind],
+        ms_a_sweep=t.elapsed / args.sweeps * 1e3,
+        launches={k: v - before[k] for k, v in gpu_kernels.COUNTS.items()},
+        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
+    if args.cond:
+        rec.extra["cond_L"] = condition_estimate(op)
+    if args.out:
+        rec.save(args.out)
+    return rec, prob, x, hist
+
+
+def run_sweep(argv=None) -> list:
+    """Parse ``sweep`` arguments and run it (the reference's run_tests grid,
+    testing_functions.cpp:396-420, its ``cli.py:503-539``): every (geometry,
+    levels, k, degree) a Neumann ``solve`` to 1e-8 on the reference's
+    fixture sizes, through ``run_solve`` on ``--device`` (cpu: the host f64
+    BiCGStab).  A failed row is recorded with its error; the rows are
+    rewritten to ``--out`` after each one; returns them, and exits non-zero
+    after the last if any row failed."""
+    import itertools
+    import json
+    import time
+
+    from meshlessmultigridpoisson_torch.config import REFERENCE_MG_SIZES
+
+    args = _args(argv, "sweep")
+    _device(args.device)  # no card: refuse before the first row
+    rows = []
+    for geom, lv, k, deg in itertools.product(args.geoms, args.levels, args.ks, args.degs):
+        row_argv = ["solve", "--device", args.device, "--geom", geom, "--sizes",
+                    *map(str, REFERENCE_MG_SIZES[geom][:lv]), "--deg", str(deg),
+                    "--k", str(k), "--neumann", "--tol", "1e-8",
+                    *(["--solver", "bicgstab"] if args.device == "cpu" else [])]
+        t0 = time.perf_counter()
+        try:
+            rec, *_ = run_solve(row_argv)
+            row = json.loads(rec.to_json())
+        except Exception as e:  # recorded; the sweep exits non-zero at its end
+            row = dict(name=f"poisson-{geom}", error=f"{type(e).__name__}: {e}")
+        row["elapsed"] = time.perf_counter() - t0
+        row["config"] = dict(geom=geom, levels=lv, k=k, deg=deg)
+        rows.append(row)
+        _log(f"{geom} L{lv} k{k} deg{deg}: {row.get('l1_error', row.get('error'))}")
+        with open(args.out, "w") as f:  # long sweeps stay harvestable
+            json.dump(rows, f, indent=1)
+    print(f"wrote {args.out}")
+    failed = [r["config"] for r in rows if "error" in r]
+    if failed:
+        raise SystemExit(f"sweep: {len(failed)} of {len(rows)} rows failed: {failed} "
+                         f"(their errors are in {args.out})")
+    return rows
+
+
+def run_preprocess(argv=None) -> str:
+    """Parse ``preprocess`` arguments, build the host setup and save its
+    hierarchy and clouds as a bundle stamped with the arguments
+    (``io.save_bundle``); returns the path written."""
+    from meshlessmultigridpoisson_torch.io import save_bundle
+
+    args = _args(argv, "preprocess")
+    prob = _make_problem(args, _device(args.device))
+    path = save_bundle(args.out or "bundle.npz", prob.hierarchy, prob.clouds,
+                       build_config=_setup_build_config(args))
+    print(f"wrote {path}")
+    return path
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["ns"]:
-        rec, *_ = run_ns(argv)
-    else:
-        rec, *_ = run_solve(argv)
+    cmd = _parser().parse_args(argv).cmd
+    if cmd == "sweep":
+        return run_sweep(argv)
+    if cmd == "preprocess":
+        return run_preprocess(argv)
+    run = {"solve": run_solve, "ns": run_ns, "probe": run_probe}[cmd]
+    rec, *_ = run(argv)
     print(rec.to_json())
     return rec
 

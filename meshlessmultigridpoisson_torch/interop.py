@@ -130,3 +130,9 @@ def hierarchy_to_numpy(hier: Hierarchy) -> dict:
 
 def state_to_numpy(state: MGState) -> dict:
     return _to_numpy(state)
+
+
+def fracstep_state_to_numpy(state) -> dict:
+    """Dict of a ``FracStepState``'s fields (``mg`` as ``state_to_numpy``;
+    the inverse of fracstep_state_from_numpy)."""
+    return _to_numpy(state)

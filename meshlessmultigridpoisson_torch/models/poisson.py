@@ -14,7 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from meshlessmultigridpoisson_torch.config import MultigridConfig
+from meshlessmultigridpoisson_torch.config import REFERENCE_MG_SIZES, MultigridConfig
+from meshlessmultigridpoisson_torch.geometry.msh import pointcloud_from_msh
 from meshlessmultigridpoisson_torch.geometry.pointclouds import PointCloud, make_cloud
 from meshlessmultigridpoisson_torch.mg.setup import build_hierarchy
 from meshlessmultigridpoisson_torch.mg.vcycle import Hierarchy, MGState, init_state
@@ -134,7 +135,7 @@ def _bc_value_fn(geomtype: str, neumann: bool, k1: int, k2: int):
 
 def make_poisson_problem(
     geomtype: str,
-    sizes: list[int],
+    sizes: list[int] | None = None,
     poly_deg: int = 4,
     k1: int = 1,
     neumann: bool = False,
@@ -142,13 +143,27 @@ def make_poisson_problem(
     block_rows: int = 256,
     ordering: str = "rcm",
     device=None,
+    num_levels: int = 3,
+    msh_files: list[str] | None = None,
 ) -> PoissonProblem:
     """Replicates gen_mg_param + run_mg_sim setup (testing_functions.cpp:328-395).
 
     Host-side f64 setup; ``device`` only hosts the RBF-FD weight solves.
+    ``sizes=None`` takes the reference's fixture sizes, the first
+    ``num_levels`` of ``REFERENCE_MG_SIZES[geomtype]``.  ``msh_files``
+    (one Gmsh v2 file a level) replaces the generated clouds, the
+    reference's own grid path (testing_functions.cpp:333); ``geomtype`` then
+    only selects the manufactured solution and the boundary data.
     """
     k2 = k1
-    clouds = [make_cloud(geomtype, n, seed=seed + i) for i, n in enumerate(sizes)]
+    if msh_files:
+        clouds = [pointcloud_from_msh(p, geomtype=geomtype) for p in msh_files]
+        clouds.sort(key=lambda c: c.n)  # the reference sorts by size, multigrid.cpp:116
+        sizes = [c.n for c in clouds]
+    else:
+        if sizes is None:
+            sizes = list(REFERENCE_MG_SIZES[geomtype][:num_levels])
+        clouds = [make_cloud(geomtype, n, seed=seed + i) for i, n in enumerate(sizes)]
     if geomtype == "box3d":
         # 3D: poly terms grow cubically (deg 3 -> 20 terms, k=50);
         # coarse levels at deg 2 (k=25, the 27-neighbor-class stencil)

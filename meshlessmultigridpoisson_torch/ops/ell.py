@@ -161,3 +161,8 @@ def spmv(ell, x: torch.Tensor) -> torch.Tensor:
         return gpu_kernels.ell_spmv(ell, x)
     gc = global_cols(ell).long()
     return (ell.vals * x[gc]).sum(dim=1)
+
+
+def spmv_n(ell: EllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x with the logical row count."""
+    return spmv(ell, x)[: ell.nrows]

@@ -181,3 +181,55 @@ def set_neumann_source(op, b: torch.Tensor, coarse: bool):
 def zero_dirichlet(op, v: torch.Tensor) -> torch.Tensor:
     """fix_vector_bound_coarse (grid.cpp:197-205)."""
     return torch.where(op.dirichlet_mask > 0, torch.zeros_like(v), v)
+
+
+def condition_estimate(op: LevelOperator) -> float:
+    """1 / rcond of the effectively solved operator (cf. Grid::cond_L,
+    grid.cpp:152-155): scipy's 1-norm estimate on the sparse matrix, host
+    f64, as the reference package computes it.
+
+    Dirichlet rows, which the smoother pins and never relaxes
+    (grid.cpp:42-51), become identity rows; on a Neumann level the Lagrange
+    row, column and unit corner (grid.cpp:566-576) border the matrix.  The
+    reference program conditions the raw assembled matrix instead, so the
+    numbers differ on Dirichlet problems.  ``onenormest`` draws its sign
+    vectors from numpy's global generator: seed it for a repeatable number.
+    """
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from meshlessmultigridpoisson_torch.ops.ell import ell_to_csr
+
+    a = ell_to_csr(op.A).tolil()
+    for j in np.where(op.dirichlet_mask.numpy()[: a.shape[0]] > 0)[0]:
+        a.rows[j] = [int(j)]
+        a.data[j] = [1.0]
+    a = a.tocsc()
+    if op.has_lagrange:
+        n = a.shape[0]
+        col = op.lag_col.numpy()[:n].reshape(-1, 1)
+        row = op.lag_row.numpy()[:n].reshape(1, -1)
+        a = sp.bmat([[a, sp.csc_matrix(col)],
+                     [sp.csc_matrix(row), sp.csc_matrix([[1.0]])]], format="csc")
+    lu = spla.splu(a + 1e-300 * sp.identity(a.shape[0], format="csc"))
+    one_norm = np.abs(a).sum(axis=0).max()
+    inv_norm = spla.onenormest(spla.LinearOperator(
+        a.shape, matvec=lu.solve, rmatvec=lambda v: lu.solve(v, trans="T")))
+    return float(one_norm * inv_norm)
+
+
+def single_grid_probe(op, x: torch.Tensor, b: torch.Tensor, sweeps: int = 1000):
+    """Raw-smoother convergence history (testGmshSingleGrid,
+    testing_functions.cpp:422-479): ``sweeps`` single sweeps from (x,
+    x_lag = 0) against (b, b_lag = 0), each recording the relative L1
+    residual before it.  Returns (x, history [sweeps]).  ``op``: a host
+    LevelOperator (the plain path) or a GpuLevel (each sweep one
+    ``gpu_backend.smooth(..., iters=1)``, each residual from the level's
+    ``ell_spmv``); the history stays on ``x``'s device until the end."""
+    zl = _zero(x)
+    xl = zl
+    hist = []
+    for _ in range(sweeps):
+        hist.append(relative_residual_l1(op, x, xl, b, zl))
+        x, xl = smooth(op, x, xl, b, zl, iters=1)
+    return x, torch.stack(hist)

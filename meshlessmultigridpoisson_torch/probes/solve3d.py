@@ -1,6 +1,7 @@
 """The 3D flagship solve on the card, and what its SolveRecord does not hold (card only).
 
     python -m meshlessmultigridpoisson_torch.probes.solve3d [--sizes N ...] [--out rec.json]
+        [--setup-cache PATH]
 
 Runs the port's ``solve`` entry point in-process with the 3D record's
 settings (``results/solve3d_1m_r5.json``, ``scripts/build3d_cache.py``):
@@ -15,9 +16,13 @@ against the record's 8.28e-5; the V-cycles of the timed solve; each
 level's x patches a block (``gpu_kernels.block_patches``) and the fused
 smoothers' last launch (grid, K and ELL buffers, shared bytes); the
 per-level table; ``probes.launchrank``'s excess by kernel and level; and,
-last, one JSON line of the numbers.  ``--sizes`` cuts the ladder (the
-smoke test's 3D phase runs the first four).  Without a card it exits
-non-zero.
+last, one JSON line of the numbers, with a SHA-256 of the solution's
+bytes.  ``--sizes`` cuts the ladder (the smoke test's 3D phase runs the
+first four).  ``--setup-cache PATH`` passes through to ``solve``: the
+first run builds the host problem and saves it there, a rerun loads it
+(the bundle's size and its save and load seconds in the line; the
+counterpart of the reference's ``scripts/build3d_cache.py``).  Without a
+card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def run(sizes=SIZES, out: str | None = None) -> dict:
+def run(sizes=SIZES, out: str | None = None, setup_cache: str | None = None) -> dict:
+    import hashlib
+
     import torch
 
     if not torch.cuda.is_available():
@@ -51,7 +58,8 @@ def run(sizes=SIZES, out: str | None = None) -> dict:
     card = f"{info['name']}, {info['power_limit']}"
     argv = ["solve", "--device", "cuda", "--geom", "box3d", "--sizes", *map(str, sizes),
             "--deg", "3", "--ordering", "kdtile", "--block-rows", "512", "--tol", "1e-8",
-            "--profile", *(["--out", out] if out else [])]
+            "--profile", *(["--out", out] if out else []),
+            *(["--setup-cache", setup_cache] if setup_cache else [])]
     log("python -m meshlessmultigridpoisson_torch.apps.cli " + " ".join(argv))
     rec, prob, x, xl = cli.run_solve(argv)
     torch.cuda.synchronize()
@@ -77,7 +85,8 @@ def run(sizes=SIZES, out: str | None = None) -> dict:
            "l1_error": rec.l1_error, "l1_over_record": rec.l1_error / RECORD_L1,
            "max_memory_allocated_gb": e["max_memory_allocated_gb"],
            "x_patches_a_block": patches, "smooth_info": dict(gk.SMOOTH_INFO),
-           "spmv_col_formats": e["spmv_col_formats"],
+           "spmv_col_formats": e["spmv_col_formats"], "setup_cache": e.get("setup_cache"),
+           "x_sha256": hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(),
            "device_busy_share": e["profile"]["device_busy_share"],
            "excess_ms_by_role": dict(ranked),
            "excess_ms_by_level": {f"{r['role']} L{r['level']} {r['part']}": r["excess_ms"]
@@ -95,8 +104,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", type=int, nargs="+", default=SIZES)
     ap.add_argument("--out", default=None, help="write the SolveRecord here")
+    ap.add_argument("--setup-cache", default=None, metavar="PATH",
+                    help="solve's --setup-cache: build and save the host problem, "
+                         "or load it")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.sizes, args.out)), flush=True)
+    print(json.dumps(run(args.sizes, args.out, args.setup_cache)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1045,3 +1045,34 @@ def test_storage_chain_matches_plain_and_parent(et, dtype, kdt, tol, width):
     assert float((out - par).abs().max()) <= tol * scale
     again = gk.block_oneshot_sweep(sw, x.clone(), xl, b)
     assert torch.equal(again, out)  # one CTA, a fixed order: the same bits
+
+
+@pytest.mark.parametrize("neumann", [False, True], ids=["dirichlet", "neumann"])
+def test_single_grid_probe_f64_class_sweep_matches_plain(neumann):
+    """``single_grid_probe`` on the probe's level (square, 600 points, deg 4,
+    one level) repacked in f64 as a v2 level: 50 sweeps, each a
+    ``class_sor_sweep`` launch and an ``ell_spmv`` residual, against the
+    same level's plain versions on the CPU and the host f64 probe, the
+    histories within 1e-10 relative."""
+    from meshlessmultigridpoisson_torch.mg.gpu_backend import gpu_level_from_operator
+    from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
+    from meshlessmultigridpoisson_torch.ops.smoothers import apply_dirichlet, single_grid_probe
+
+    prob = make_poisson_problem("square", [600], poly_deg=4, neumann=neumann)
+    op = prob.hierarchy.finest
+    x0 = apply_dirichlet(op, prob.state0.x[-1], coarse=False)
+    b = prob.state0.b[-1]
+    hists = {}
+    for d in ("cuda", "cpu"):
+        lv = gpu_level_from_operator(op, d, dtype=torch.float64, use_v6=False)
+        assert lv.kernel_kind == "v2-fallback"
+        before = dict(gk.COUNTS)
+        x, hists[d] = single_grid_probe(lv, x0.to(d), b.to(d), sweeps=50)
+        made = {k: gk.COUNTS[k] - before[k] for k in ("sweep2", "spmv2")}
+        assert made == ({"sweep2": 50, "spmv2": 50} if d == "cuda"
+                        else {"sweep2": 0, "spmv2": 0}), made
+    _, hists["host"] = single_grid_probe(op, x0, b, sweeps=50)
+    h = hists["cuda"].cpu().numpy()
+    for ref in ("cpu", "host"):
+        r = hists[ref].numpy()
+        assert np.max(np.abs(h - r) / np.abs(r)) <= 1e-10, ref
