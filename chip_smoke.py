@@ -95,13 +95,12 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    0 elsewhere): none in a V-cycle, whose fine re-solves ride in the fine
    smoother's launch; relative L1 residual < 1e-8, re-checked
    from the returned (x, x_lag) with the plain f64 SpMV, border row
-   included; L1 error < 1e-6.  After the Dirichlet path's counts are
-   read, its timed solve runs four more times, in turns with every
-   ``ell_spmv`` call on the parent design (``spmv_rowwarp``, checked by the
-   counts: no ``spmv6`` or ``spmv8`` launch) and on the new kernel, and
-   the times are printed (each residual < 1e-8); the Neumann timed solve
-   twice more, with the V-cycle's re-solves and pin as launches of their
-   own (``bound2``, ``torch.where``), then fused, each run failing unless
+   included; L1 error < 1e-6.  (The Dirichlet solve's A/B with every
+   ``ell_spmv`` on the parent design was dropped for phase 6's time;
+   PERF.md keeps its results.)  After the Neumann path's counts are read,
+   its timed solve runs twice more, with the V-cycle's re-solves and pin
+   as launches of their own (``bound2``, ``torch.where``), then fused,
+   each run failing unless
    its ``bound2`` count is its flow's.  After the exact
    path's counts are read, its timed solve runs again with every
    ``sweep6`` sweep on the parent chain (``sweep6_chain``; the run fails
@@ -146,14 +145,10 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    fs_residual finite, the steps 0, 4, 8, ... matching the reference's TPU
    record ``results/ns_tpu_r5.json`` within 2e-3 relative, and the last
    step's PPE solve (before the p_relax blend) re-checked with a plain f64
-   composition of the compatible operator below 1e-9; then runs of 6
-   steps from rest on the same problem, in turns parent, change, change,
-   parent, three times over (each run's residuals within 2e-3 of the main
-   path's), the parent with the V-cycle's re-solves and the matvec's tail
-   as separate launches (each run failing unless its ``bound2``, ``ppe2``
-   and ``ppe2_scatter`` counts are its flow's), printing each run's median
-   step time and whether the two sides separate, run by run and round by
-   round; last, the checkpoint: the state after 2 steps from rest written
+   composition of the compatible operator below 1e-9 (the NS fold A/B
+   against the separate re-solves and matvec tail was dropped for the
+   sharded phase's time; PERF.md keeps PRs 12-15's results); last, the
+   checkpoint: the state after 2 steps from rest written
    by ``io.save_state`` and read back by ``load_state``, 2 more steps from
    each, their fs_residuals and ``u``, ``v`` bit-identical;
 5. the user surfaces, each through its CLI entry point in-process with
@@ -180,7 +175,36 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    concentric_circles --levels 2 --ks 1 --degs 4``: three rows, none in
    error, each residual < 1e-8 and L1 within 1% of the reference's host
    solve of its configuration (``SWEEP_REF_L1``); the phase's time;
-6. on the bench's 1M-row operator (5 colors of ~1,640 blocks), the fused
+6. the row-sharded solve (``parallel/``), on the host problems of phase
+   3's Dirichlet and Neumann paths (full width, not rebuilt): each
+   partitioned into 4 shards with ``shard_levels=2`` (host seconds and
+   each shard's ns, nf, phases, frontier share and interior kind printed);
+   on every shard of both sharded levels, in f32 and f64, the rectangular
+   frontier ``class_sor_sweep`` over x_ext (rows past nf untouched), the
+   interior pass (``colored_smooth`` or ``storage_chain``, frontier rows
+   untouched), the ext ``ell_spmv`` and the ext ``compact_rows`` re-solve
+   against their plain versions (``parallel.dryrun.level_plain_errors``);
+   shard 1 of the fine level (neighbours on both sides) also
+   timed through the phase-2 checks into the kernels line (labels
+   ``shard_frontier_sweep2``, ``shard_interior_sweep8``/``sweep6``,
+   ``shard_spmv_ext``, ``shard_bound2_ext``).  Then ``probes.shard_solve``
+   (counts set to 0 after each world's repack, read after its solve): the
+   Dirichlet slice at P = 1 in process (a world of one, NCCL) and P = 2 on
+   the one card (spawned ranks, gloo staged through host), and the
+   reference test's Neumann problem (square 600/2500, deg 4) at P = 2,
+   each with both levels sharded: in each world every rank first holds its
+   kernels on the levels its solve repacked (f64 for the BiCGStab, f32 for
+   the V-cycles; every sharded level, the same four checks) against their
+   plain versions, then the f64 sharded BiCGStab < 1e-8, re-checked with the plain f64
+   SpMV < 1e-8, the solution within 1e-6 of the serial device solve's
+   (phase 3's, or the CLI's on that problem), the L1 error at most 1.5x
+   the serial one's, the path's kernel roles launched, the collectives a
+   V-cycle makes equal to those counted from the partition, every rank
+   exiting 0; the iterations, wall seconds, bytes and collectives per
+   V-cycle and the f32 25-cycle history printed; after P = 1,
+   ``probes.shard_timing`` on the Dirichlet slice (the P = 1 sharded
+   V-cycle against the unsharded one, f32); the phase's time;
+7. on the bench's 1M-row operator (5 colors of ~1,640 blocks), the fused
    colored smoother in f32, f64 and bf16 K as on the slice's levels (5
    sweeps, no border) and the storage-order chain (f32, 8,192 blocks)
    against the parent chain as on the slice's levels, then the kernel bench
@@ -190,7 +214,7 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    before it times them): prints its JSON line; checks the SpMV spot
    check, ``stream14``, ``spmv6``, ``sweep6``, ``sweep8`` and
    ``sweep8_percolor`` launched, and every ``pct_of_bound`` <= 105;
-7. on the bench's host operator (built once, before the bench, for the
+8. on the bench's host operator (built once, before the bench, for the
    bench and both probes): ``probes.kexp`` with 3 iterations (``spmv2``,
    ``spmv3`` and ``spmv1`` at 128- and 256-row blocks, ``sweep1`` at 128),
    then ``probes.ksweepprobe`` with 3 sweeps (the four modes of
@@ -199,14 +223,14 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    read after; each probe holds every kernel or mode against its plain
    version before timing it; every role launched, each at or above its
    bound; prints the chain's split per block;
-8. the kernel-generation probe (``meshlessmultigridpoisson_torch.probes.
+9. the kernel-generation probe (``meshlessmultigridpoisson_torch.probes.
    ktime``) in-process on its real 1,048,576-row pattern with 5 iterations
    (counts set to 0 before, read after; the probe holds every kernel
    against its plain version before timing it): ``spmv2`` and ``sweep2``
    at 128- and 256-row blocks (``sweep2`` also against its parent design,
    ``sweep2_tilewalk``, in turns), ``spmv4``, ``sweep4`` and ``sweep5``,
    each launched, each at or above its bound;
-9. the stream probes and the SpMV's gather/reduction split, each
+10. the stream probes and the SpMV's gather/reduction split, each
    in-process at the reference's sizes with its counts set to 0 before and
    read after: ``probes.kstream`` (the four table mixes over [2^18, 128]
    at 1024-4096 tile rows, 8192 for ``f32``; roles ``kstream_*``),
@@ -231,7 +255,7 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    then each production mma role against its parent in turns parent,
    change, change, parent, printed); every role within 1e-5 of max |plain|
    (the one-pass roles of their TF32 plain version);
-10. print a JSON line of per-kernel results, the total time, then, as the
+11. print a JSON line of per-kernel results, the total time, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package next to it, it exits with a
@@ -247,6 +271,7 @@ import dataclasses
 import json
 import contextlib
 import io
+import itertools
 import math
 import os
 import statistics
@@ -376,10 +401,15 @@ KISO7_ROLES = ("kiso7_affine", "kiso7_ids", "spmv4")
 KISO8_ROLES = ("kiso8_mxu", "kiso8_mxudef", "kiso8_vpu", "kiso8_mxu_v1", "kiso8_mxudef_v1")
 # the NS main path: the reference program's default run at its own width
 # and depth (cli ns defaults), S steps from rest
+# the sharded phase: per-shard kernel checks on a 4-way partition (shard 1,
+# with neighbours on both sides, timed into the kernels line), the solves
+# at P = 1 and 2, and P = 2 on the reference test's Neumann problem
+SHARD_CHECK_P = 4
+SHARD_TIMED = 1
+SHARD_NEUMANN_ARGV = ["solve", "--device", "cuda", "--geom", "square", "--sizes", "600",
+                      "2500", "--deg", "4", "--neumann", "--tol", "1e-8"]
 NS_SIZES = [170, 600, 2500, 10000]
 NS_STEPS = 12
-NS_AB_STEPS = 6  # steps a run of the NS A/B
-NS_AB_ROUNDS = 2  # rounds of parent, change, change, parent
 NS_CKPT_STEPS = 2  # steps before the checkpoint, and after it from each state
 NS_ROLES = DIRICHLET_ROLES + ("bound2", "ppe2")
 NS_EXPECT_KERNELS = ["v7-exact", "v7-exact", "v7-exact", "v8-colored"]
@@ -949,11 +979,13 @@ def main(argv=None) -> int:
         dtype = sw.A.vals.dtype
         n = sw.A.nrows_pad
         tiles = n // sw.class_size
-        x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
+        # x of the table's columns: a rectangular sweep (a shard's frontier
+        # rows) reads rows past n and must leave them as they are
+        x0 = torch.randn(sw.A.ncols, generator=gen, dtype=torch.float64).to(dev, dtype)
         b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
         xl = torch.tensor(x_lag, dtype=dtype, device=dev)
         par = dataclasses.replace(sw, role=gk.CLASS_PARENT)
-        frozen = sw.mask == 0
+        frozen = torch.nonzero(sw.mask == 0).flatten()
         out = {}
         for s_ in (sw, par):
             before = gk.COUNTS[s_.role]
@@ -963,6 +995,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"class_sor_sweep {label} ({s_.role}): not one launch")
             if not torch.equal(out[s_.role][frozen], x0[frozen]):
                 raise AssertionError(f"class_sor_sweep {label} ({s_.role}): a frozen row moved")
+            if not torch.equal(out[s_.role][n:], x0[n:]):
+                raise AssertionError(f"class_sor_sweep {label} ({s_.role}): wrote past its rows")
         plan = gk.CLASS_INFO[sw.role]
         t0 = time.perf_counter()
         xp = gk.class_sor_sweep_plain(sw, x0.clone(), xl, b)
@@ -1143,39 +1177,6 @@ def main(argv=None) -> int:
     del sv, sc, out, ref
 
     @contextlib.contextmanager
-    def parent_spmv():
-        """Every ``ell_spmv`` call inside on the parent design
-        (``spmv_rowwarp``: int32 columns, each row to the full width), the
-        tables converted once each: the name is swapped in every module of
-        the package that holds it.  Yields the launch counts the block
-        made, which must hold ``spmv_rowwarp`` launches and no ``spmv6``
-        or ``spmv8`` one."""
-        orig, tables, made = gk.ell_spmv, {}, {}
-        holders = [m for name, m in list(sys.modules.items())
-                   if name.split(".")[0] == "meshlessmultigridpoisson_torch"
-                   and getattr(m, "ell_spmv", None) is orig]
-
-        def parent(A, x):
-            key = id(A)
-            if key not in tables or tables[key][0] is not A:
-                tables[key] = (A, gk.rowwarp_ell(A))
-            return orig(tables[key][1], x)
-
-        before = dict(gk.COUNTS)
-        for m in holders:
-            m.ell_spmv = parent
-        try:
-            yield made
-        finally:
-            for m in holders:
-                m.ell_spmv = orig
-            torch.cuda.synchronize()
-            made.update({k: gk.COUNTS[k] - before[k] for k in before})
-        if made["spmv_rowwarp"] == 0 or made["spmv6"] or made["spmv8"]:
-            raise AssertionError(f"the parent-SpMV run did not take the parent design: "
-                                 f"{ {k: v for k, v in made.items() if v} }")
-
-    @contextlib.contextmanager
     def unfused():
         """The parent flow of the ``compact_rows`` fold inside: the V-cycle's
         fine re-solves and Dirichlet pin as launches of their own around the
@@ -1339,6 +1340,7 @@ def main(argv=None) -> int:
               True, False),
              ("neumann", ["--neumann"], NEUMANN_ROLES, (), EXPECT_KERNELS, False, None))
     prob = None
+    kept = {}  # the sharded phase's host problems and serial device solves
     for path, extra, roles, idle_roles, expect, reuse, use_v6 in paths:
         argv = argv_solve + extra
         print(f"main path ({path}): python -m meshlessmultigridpoisson_torch.apps.cli "
@@ -1398,24 +1400,8 @@ def main(argv=None) -> int:
             return fail(f"{path}: re-checked residual {recheck:.3e} >= 1e-8")
         if not rec.l1_error < 1e-6:
             return fail(f"{path}: l1_error {rec.l1_error:.3e} >= 1e-6")
-        if path == "dirichlet":
-            # the timed solve with every ell_spmv on the parent design, in
-            # turns parent, change, change, parent (the Neumann path's A/B
-            # was dropped for time; PERF.md keeps its results)
-            walls, cycles = [], []
-            for side in ("parent", "change", "change", "parent"):
-                with parent_spmv() if side == "parent" else contextlib.nullcontext():
-                    r_ab, *_ = cli.run_solve(argv, problem=prob)
-                    torch.cuda.synchronize()
-                if not r_ab.final_residual < 1e-8:
-                    return fail(f"{path} SpMV A/B ({side}): residual "
-                                f"{r_ab.final_residual:.3e} >= 1e-8")
-                walls.append(r_ab.wall_time_s)
-                cycles.append(r_ab.cycles)
-            print(f"{path}: timed solve, ell_spmv parent / change / change / parent "
-                  + " / ".join(f"{w:.4f}" for w in walls) + f" s (passes {cycles}) "
-                  f"({card})", flush=True)
-            del r_ab
+        if path in ("dirichlet", "neumann"):
+            kept[path] = dict(prob=prob, x=x.double().cpu(), l1=rec.l1_error, argv=argv)
         if path == "neumann":
             # the compact_rows fold: the timed solve with the V-cycle's
             # re-solves as launches of their own, then fused (one run each,
@@ -1662,68 +1648,6 @@ def main(argv=None) -> int:
         return fail(f"ns: re-checked PPE residual {recheck:.3e} >= 1e-9")
     gfs = build_gpu_fracstep(prob, dev)
 
-    def ns_ab(what, parent_ctx, rounds, check):
-        """Runs of NS_AB_STEPS steps from rest on one repacked problem in
-        turns parent, change, change, parent, ``rounds`` times; each run's
-        residuals within NS_HIST_RTOL of the main path's and its launch
-        counts held by ``check(side, counts, inner iterations a pass)``;
-        prints each run's median step time (its first step left out) and
-        whether the two sides separate, by run and by round."""
-        step_s = {"parent": [], "change": []}
-        run_meds = {"parent": [], "change": []}
-        for side in ("parent", "change", "change", "parent") * rounds:
-            times, inner_ab, t_prev = [], [], [time.perf_counter()]
-
-            def on_step(i, state, st, times=times, inner_ab=inner_ab, t_prev=t_prev):
-                now = time.perf_counter()
-                times.append(now - t_prev[0])
-                t_prev[0] = now
-                inner_ab.append([its for its, _, _ in st["ppe_passes"]])
-
-            before = dict(gk.COUNTS)
-            with parent_ctx() if side == "parent" else contextlib.nullcontext():
-                t_prev[0] = time.perf_counter()
-                _, h_ab, _ = run_gpu(prob, dev, steps=NS_AB_STEPS, t=gfs, on_step=on_step)
-            torch.cuda.synchronize()
-            check(side, {k: gk.COUNTS[k] - before[k] for k in before}, inner_ab)
-            d = max(abs(a - b) / b for a, b in zip(h_ab, hist))
-            if not d <= NS_HIST_RTOL:
-                raise AssertionError(f"ns {what} A/B ({side}): fs_residual deviates "
-                                     f"{d:.3e} from the main path")
-            step_s[side] += times[1:]
-            run_meds[side].append(statistics.median(times[1:]))
-        med = {k: statistics.median(v) for k, v in step_s.items()}
-        if max(run_meds["change"]) < min(run_meds["parent"]):
-            verdict = "the change faster in every run"
-        elif max(run_meds["parent"]) < min(run_meds["change"]):
-            verdict = "the change slower in every run"
-        else:
-            verdict = "not resolved: the runs' medians overlap"
-        # a round's two change runs against its two parent runs
-        faster = sum(sum(run_meds["change"][2 * k:2 * k + 2])
-                     < sum(run_meds["parent"][2 * k:2 * k + 2]) for k in range(rounds))
-        print(f"ns: {what} A/B, s a step (median of steps 1-{NS_AB_STEPS - 1} of each "
-              f"run, in turns): parent {[round(m, 4) for m in run_meds['parent']]}, change "
-              f"{[round(m, 4) for m in run_meds['change']]}; pooled median parent "
-              f"{med['parent']:.4f} / change {med['change']:.4f}; {verdict}; the change "
-              f"faster in {faster} of {rounds} rounds ({card})", flush=True)
-
-    def fold_flow(side, n, inner_ab):
-        """The change: no bound2 in a V-cycle, one ppe2 a matvec; the
-        parent: two bound2 more a V-cycle, the tail as ppe2_scatter."""
-        mv = ns_matvecs(inner_ab)
-        par = side == "parent"
-        want = {"bound2": ns_bound2(inner_ab)
-                + (2 * vcycles(NS_EXPECT_KERNELS, n) if par else 0),
-                "ppe2": 0 if par else mv, "ppe2_scatter": mv if par else 0}
-        got = {k: n[k] for k in want}
-        if got != want:
-            raise AssertionError(f"ns fold A/B ({side}): launches {got}, not {want}")
-
-    # the compact_rows fold against its parent flow
-    ns_ab("re-solves and matvec tail fused / separate", unfused, NS_AB_ROUNDS,
-          fold_flow)
-
     # the checkpoint: a state saved and loaded back steps as the state itself
     import shutil
     import tempfile
@@ -1759,7 +1683,96 @@ def main(argv=None) -> int:
     user_surfaces(cli, gk, launches, card, os.path.dirname(os.path.abspath(__file__)))
     torch.cuda.empty_cache()
 
-    # ---- 6. the kernel bench -------------------------------------------------
+    # ---- 6. the row-sharded solve (parallel/) ----------------------------------
+    t_phase = time.perf_counter()
+    print(f"phase-6 starts at {t_phase - t_start:.1f} s", flush=True)
+    from meshlessmultigridpoisson_torch.parallel import dryrun as shard_dryrun
+    from meshlessmultigridpoisson_torch.parallel import sharded as psh
+    from meshlessmultigridpoisson_torch.parallel.partition import partition_hierarchy
+    from meshlessmultigridpoisson_torch.probes import shard_solve, shard_timing
+
+    for name in ("dirichlet", "neumann"):
+        hp = kept[name]["prob"]
+        t0 = time.perf_counter()
+        shier = partition_hierarchy(hp.hierarchy, SHARD_CHECK_P, shard_levels=2)
+        part_s = time.perf_counter() - t0
+        fine_sh = shier.fine
+        layout = [(f.shard_rows, f.frontier_rows, f.phases) for f in shier.sharded]
+        print(f"sharded {name}: partition into {SHARD_CHECK_P} shards, shard_levels 2, "
+              f"{part_s:.2f} s host; fine level {fine_sh.n_pad2} rows, (ns, nf, phases) "
+              f"per sharded level {layout}", flush=True)
+        for (j, level), s_ in itertools.product(enumerate(shier.sharded),
+                                                range(SHARD_CHECK_P)):
+            f = level.shard(s_)
+            colored = psh.interior_colored(f)
+            for dt in (torch.float32, torch.float64):
+                lv = psh.shard_level(f, dev, dt, colored)
+                tag = f"{name} P={SHARD_CHECK_P} level {j} shard {s_}"
+                errs = shard_dryrun.level_plain_errors(lv, seed=100 * j + s_)
+                bad = {k: v for k, v in errs.items()
+                       if not v <= shard_dryrun.plain_tol(dt, k)}
+                print(f"  {tag} {dname(dt)}: ns {f.shard_rows}, nf {f.frontier_rows}, "
+                      f"C {f.phases}, frontier share {f.frontier_rows / f.shard_rows:.4f}, "
+                      f"interior {lv.kind} ({lv.sweep.role}), partition {part_s:.2f} s; "
+                      "kernel vs plain " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()),
+                      flush=True)
+                if bad:
+                    return fail(f"{tag} {dname(dt)}: kernel vs plain over its tolerance: "
+                                f"{bad}")
+                if j == 0 and s_ == SHARD_TIMED:  # one interior shard timed into the kernels line
+                    shape = f"{tag} ({f.frontier_rows} x {f.ext_rows} frontier)"
+                    check_class_sweep(f"shard_frontier_sweep2 {shape}", lv.front, 0.3)
+                    if isinstance(lv.sweep, gk.ClassSweep):
+                        check_class_sweep(f"shard_interior_sweep2 {tag}", lv.sweep, 0.3)
+                    else:
+                        check_sweep(f"shard_interior_{lv.sweep.role} {tag} ({f.shard_rows} "
+                                    f"rows, {lv.sweep.phase_ptr[-1]} blocks swept)", lv.sweep)
+                    check_spmv("spmv6", f"shard_spmv_ext {tag} ({f.shard_rows} x "
+                               f"{f.ext_rows})", lv.A)
+                    if lv.bound.nrows:
+                        check_compact(f"shard_bound2_ext {tag} (over {f.ext_rows})", lv.bound)
+                del lv
+        del shier, fine_sh
+        torch.cuda.empty_cache()
+
+    # P = 1 in process (a world of one, NCCL) and P = 2 on the one card
+    # (spawned ranks, gloo staged through host) on the Dirichlet slice; P = 2
+    # on the reference test's Neumann problem
+    dk = kept["dirichlet"]
+    for path, shards, argv, prob_, serial in (
+            ("sharded_p1", 1, dk["argv"], dk["prob"], (dk["x"], dk["l1"])),
+            ("sharded_p2", 2, dk["argv"], dk["prob"], (dk["x"], dk["l1"])),
+            ("sharded_p2_neumann", 2, SHARD_NEUMANN_ARGV, None, None)):
+        print(f"main path ({path}): python -m meshlessmultigridpoisson_torch.probes."
+              f"shard_solve --shards {shards} (" + " ".join(argv) + ")", flush=True)
+        t0 = time.perf_counter()
+        row = shard_solve.run(shards, argv, problem=prob_, serial=serial)
+        launches[path] = {r: row["launches"].get(r, 0) for r in gk.COUNTS}
+        print(f"{path}: {json.dumps(row)}", flush=True)
+        print(f"{path}: {shards} rank(s), backend {row['backend']}"
+              f"{' staged through host' if row['staged'] else ''}, f64 BiCGStab "
+              f"{row['iters']} iterations to {row['resid']:.3e} (re-checked "
+              f"{row['recheck']:.3e}), {row['solve_seconds']:.3f} s; solution "
+              f"{row['parity']:.2e} from the serial device solve's, L1 {row['l1_error']:.4e} "
+              f"(serial {row['l1_serial']:.4e}); per V-cycle on rank 0: "
+              f"{row['comm_per_vcycle']} (counted from the partition: "
+              f"{row['comm_model_per_vcycle']}); f32 V-cycle history {row['f32_history']}; "
+              f"{time.perf_counter() - t0:.1f} s in all ({card})", flush=True)
+        for dt_, checks in row["plain_checks"].items():  # every rank, every sharded level
+            print(f"{path}: kernel vs plain on the solve's own shard levels ({dt_}; largest "
+                  f"over ranks and levels): " + ", ".join(
+                      f"{k} {c['max_rel_err']:.2e} (tol {c['tol']:.0e}, {c['shards']} shards)"
+                      for k, c in checks.items()), flush=True)
+        if path == "sharded_p1":  # one V-cycle against the serial one, f32
+            trow = shard_timing.run(problem=dk["prob"], deg=6, cycles=20)
+            print(f"shard_timing (P = 1 sharded vs unsharded V-cycle, f32): "
+                  f"{json.dumps(trow)}", flush=True)
+        torch.cuda.empty_cache()
+    del kept, dk
+    print(f"phase-6 the row-sharded solve: {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+
+    # ---- 7. the kernel bench -------------------------------------------------
     t0 = time.perf_counter()
     bench_op = bench.build_operator()
     print(f"bench operator (host, shared by the bench, kexp and ksweepprobe): "
@@ -1826,7 +1839,7 @@ def main(argv=None) -> int:
                 **{k: r[k] for k in ("max_abs_err", "rel_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}))
 
-    # ---- 7. kexp and the sweep probe on the bench's operator ------------------
+    # ---- 8. kexp and the sweep probe on the bench's operator ------------------
     print("main path (kexp): python -m meshlessmultigridpoisson_torch.probes.kexp "
           f"{bench.N} {KEXP_ITERS}", flush=True)
     gk.reset_counts()
@@ -1849,7 +1862,7 @@ def main(argv=None) -> int:
     del res, bench_op
     torch.cuda.empty_cache()
 
-    # ---- 8. the kernel-generation probe --------------------------------------
+    # ---- 9. the kernel-generation probe --------------------------------------
     print("main path (ktime): python -m meshlessmultigridpoisson_torch.probes.ktime "
           f"{KTIME_N} {KTIME_ITERS}", flush=True)
     gk.reset_counts()
@@ -1871,7 +1884,7 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- 9. the stream probes and the SpMV's gather/reduction split ------------
+    # ---- 10. the stream probes and the SpMV's gather/reduction split ------------
     stream_tol = dict.fromkeys(KSTREAM_ROLES + CHAIN_ROLES + ("kprobe_stream",),
                                TOL[("stream", "f32")])
     spmv_tol = dict.fromkeys(KPROBE_ROLES[1:] + KISO6_ROLES + KISO7_ROLES + KISO8_ROLES,
@@ -1923,7 +1936,7 @@ def main(argv=None) -> int:
         del res
         torch.cuda.empty_cache()
 
-    # ---- 10. results ----------------------------------------------------------
+    # ---- 11. results ----------------------------------------------------------
     kernels = []
     for role, (name, source, replaces) in ROLES.items():
         by_path = {p: n[role] for p, n in launches.items()}

@@ -65,6 +65,12 @@
 //   * The shared layout, the slot size and the ring's depth are computed
 //     by the launcher from the card's shared memory (a compile-time
 //     layout cost storage_chain 11-18% on the H100).
+// A rectangular sweep: the tables may hold the first n rows of a longer x
+// (a shard's frontier rows over its extended vector [own rows | neighbour
+// frontiers], parallel/sharded.py).  A column at or past n lies past every
+// tile's first row, so it is never a chain entry: it is read in the bulk
+// sums from device memory (values no sweep of this launch writes), and
+// only rows below n are staged into the ring or written back.
 // Loads are issued a chunk at a time before their products because a load
 // under the entry's predicate, consumed at once, costs one full latency per
 // entry (PERF.md §6).  A slot's bulk copy is the 16-byte-aligned
@@ -525,10 +531,10 @@ int launch_tilewalk(const T* vals, const int* cols, int width, int n_pad, int cl
 
 }  // namespace
 
-// One sweep; x in place.  seg: each row's chain entries (ops/gpu_kernels
-// class_window_tables, for this class_size and window); xring: a power of
-// two >= 3 windows.  info (3 ints, may be null): the ring's slots, the
-// shared bytes, the tiles a slot.
+// One sweep of rows [0, n_pad); x (n_pad rows or more) in place.  seg:
+// each row's chain entries (ops/gpu_kernels class_window_tables, for this
+// class_size and window); xring: a power of two >= 3 windows.  info (3
+// ints, may be null): the ring's slots, the shared bytes, the tiles a slot.
 #define MMP_CLASS_ENTRY(NAME, TILEWALK, T)                                         \
   extern "C" int NAME(const T* vals, const int* cols, const int* lens,             \
                       const short* seg, int width, int n_pad, int class_size,      \

@@ -10,6 +10,7 @@ becomes a port hierarchy holding the SAME operators, so the port's solvers
 can be held against the reference independently of setup parity.
 ``hierarchy_to_numpy`` / ``state_to_numpy`` go the other way.
 
+``sharded_to_numpy`` gives the port's row-sharded hierarchy the same way.
 ``fracstep_problem_from_numpy`` / ``fracstep_state_from_numpy`` do the same
 for the fractional-step problem and state (the reference package's
 ``FracStepProblem`` / ``FracStepState`` fields), so both packages step
@@ -130,6 +131,14 @@ def hierarchy_to_numpy(hier: Hierarchy) -> dict:
 
 def state_to_numpy(state: MGState) -> dict:
     return _to_numpy(state)
+
+
+def sharded_to_numpy(shier) -> dict:
+    """A ``parallel.partition.ShardedHierarchy`` as a nested dict of numpy
+    arrays (its fields; ``sharded`` a tuple of level dicts, ``coarse`` and
+    ``fine_op_cpu`` as ``hierarchy_to_numpy`` gives them) — the layout of
+    the reference's ``ShardedHierarchy`` fields, for the tests."""
+    return _to_numpy(shier)
 
 
 def fracstep_state_to_numpy(state) -> dict:

@@ -814,9 +814,10 @@ class BlockSweep:
 
     Phase p updates blocks ``order[phase_ptr[p]:phase_ptr[p+1]]``.  Colored
     (``serial=False``): one phase per color, blocks of a phase independent.
-    Storage order (``serial=True``): one phase holding every block, walked
-    in order, each block seeing the previous block's result.  ``kT`` is in
-    the vectors' dtype, or bf16 with f32 vectors (the fast-K instance).
+    Storage order (``serial=True``): one phase holding every block (or a
+    subset: a shard's interior blocks), walked in order, each block seeing
+    the previous block's result.  ``kT`` is in the vectors' dtype, or bf16
+    with f32 vectors (the fast-K instance).
     """
 
     A: DeviceEll  # the level's square matrix
@@ -964,7 +965,12 @@ def _check_block_sweep(sw: BlockSweep, x, b, what: str):
     _check("vals", sw.A.vals, dev, dt)
     _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
     _check("lagc", sw.lagc, dev, dt, (n_pad,))
-    _check("order", sw.order, dev, torch.int32, (nb,))
+    # a storage-order sweep may walk a subset of the blocks (a shard's
+    # interior pass, parallel/sharded.py); a colored one walks them all
+    n_order = sw.order.shape[0] if sw.serial else nb
+    if n_order > nb:
+        raise ValueError(f"order lists {n_order} blocks, the level has {nb}")
+    _check("order", sw.order, dev, torch.int32, (n_order,))
     _check("x", x, dev, dt, (n_pad,))
     _check("b", b, dev, dt, (n_pad,))
     return dev, dt, kdt
@@ -1285,9 +1291,12 @@ class ClassSweep:
     from the same x.  Row vectors are ``[n_pad]``; padding rows carry
     diag 1 and mask 0, so they never move.  ``A``'s rows are reordered for
     the sweep's windows (``class_window_tables``): each row's first ``seg``
-    entries are its chain entries."""
+    entries are its chain entries.  ``A`` may be rectangular: the sweep
+    updates the first ``n_pad`` rows of an x of ``A.ncols >= n_pad`` (a
+    shard's frontier rows over its extended vector, ``parallel.sharded``);
+    the rows past ``n_pad`` are read, never written."""
 
-    A: DeviceEll  # the level's square matrix
+    A: DeviceEll  # the rows swept [n_pad, width] over an x of A.ncols
     diag: torch.Tensor
     mask: torch.Tensor  # smooth mask: rows with mask > 0 are updated
     omega: torch.Tensor  # per-row omega (omega * omega_scale)
@@ -1319,7 +1328,9 @@ def class_window_tables(A: DeviceEll, class_size: int) -> tuple:
     entries (columns in [w0 - R, its tile's first row)) first, in their
     order, then its other entries; seg[i] (int16) counts the first.  The
     same operator in the same memory footprint (the old tables are
-    dropped); ``lens`` from the new order."""
+    dropped); ``lens`` from the new order.  A column at or past the rows
+    swept (a rectangular ``A``) lies past every tile's first row, so it is
+    never a chain entry."""
     if A.col_base is not None:
         raise ValueError("the class sweep takes int32 columns")
     window = class_window(class_size)
@@ -1346,13 +1357,14 @@ def class_sweep(A: DeviceEll, diag, mask, omega, lagc, class_size: int = 8,
     """Tables from host vectors of length <= ``n_pad`` (the rest is padding:
     diag 1, mask 0, omega 1, lag_col 0) in ``A``'s dtype and device, and
     ``A`` reordered for the sweep's windows: callers that keep the matrix
-    use the sweep's ``A``, one copy of it."""
+    use the sweep's ``A``, one copy of it.  ``A`` square, or the first
+    rows of a longer x (``A.ncols > n_pad``: a rectangular sweep)."""
     if role not in CLASS_SWEEP_ROLES + (CLASS_PARENT,):
         raise ValueError(f"unknown class-sweep role {role!r}")
     n_pad = A.nrows_pad
-    if A.ncols != n_pad or n_pad % class_size:
-        raise ValueError(f"class sweep needs a square operator of whole tiles: "
-                         f"{n_pad} x {A.ncols}, class size {class_size}")
+    if A.ncols < n_pad or n_pad % class_size:
+        raise ValueError(f"class sweep needs whole tiles over an x at least as long "
+                         f"as the rows: {n_pad} x {A.ncols}, class size {class_size}")
     A, seg = class_window_tables(A, class_size)
 
     def rows(v, fill):
@@ -1370,16 +1382,18 @@ def class_sor_sweep_plain(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
     """Plain version: a loop over the tiles in storage order, each tile one
     batched gather-sum and the update of ``ops/smoothers._gs_sweep`` in the
     form x += [mask] omega / d (b - lag_col x_lag - A x) (the same value:
-    the diagonal term of A x cancels ``(1 - omega) x``).  Updates ``x`` in
-    place and returns it.  CUDA tensors stay on the card; CPU tensors are
-    walked through numpy views of the same memory (a torch dispatch per
-    tile costs several times more)."""
+    the diagonal term of A x cancels ``(1 - omega) x``) on its first
+    ``n_pad`` rows (x holds ``A.ncols``).  Updates ``x`` in place and
+    returns it.  CUDA tensors stay on the card; CPU tensors are walked
+    through numpy views of the same memory (a torch dispatch per tile costs
+    several times more)."""
     S = sw.class_size
-    nt = sw.A.nrows_pad // S
+    n_pad = sw.A.nrows_pad
+    nt = n_pad // S
     coef = torch.where(sw.mask > 0, sw.omega / sw.diag, 0.0)
     r0 = b - sw.lagc * x_lag
     tabs = [sw.A.vals.view(nt, S, -1), sw.A.cols.long().view(nt, S, -1),
-            coef.view(nt, S), r0.view(nt, S), x, x.view(nt, S)]
+            coef.view(nt, S), r0.view(nt, S), x, x[:n_pad].view(nt, S)]
     if x.device.type == "cpu":
         tabs = [t.numpy() for t in tabs]
     vals, cols, coef, r0, xf, xv = tabs
@@ -1389,9 +1403,10 @@ def class_sor_sweep_plain(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
 
 
 def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
-    """One full class SOR sweep on ``x``, in place; returns ``x``: one
-    launch of the window kernel, or of the parent design for role
-    "sweep2_tilewalk".  CPU tensors: ``class_sor_sweep_plain``."""
+    """One full class SOR sweep on ``x`` [``A.ncols``] (its first ``n_pad``
+    rows; ``b`` [``n_pad``]), in place; returns ``x``: one launch of the
+    window kernel, or of the parent design for role "sweep2_tilewalk".
+    CPU tensors: ``class_sor_sweep_plain``."""
     if x.device.type == "cpu" and sw.A.vals.device.type == "cpu":
         return class_sor_sweep_plain(sw, x, x_lag, b)
     dev, dt = sw.A.vals.device, sw.A.vals.dtype
@@ -1405,7 +1420,7 @@ def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
     _check("cols", sw.A.cols, dev, torch.int32, sw.A.vals.shape)
     for name in ("diag", "mask", "omega", "lagc"):
         _check(name, getattr(sw, name), dev, dt, (n_pad,))
-    _check("x", x, dev, dt, (n_pad,))
+    _check("x", x, dev, dt, (sw.A.ncols,))
     _check("b", b, dev, dt, (n_pad,))
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
     _check("x_lag", xl, dev, dt, ())
@@ -1414,8 +1429,8 @@ def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
             sw.lagc.data_ptr(), xl.data_ptr(), x.data_ptr())
     if sw.role == CLASS_PARENT:
         fn = getattr(_load(), f"mmp_class_tilewalk_{_SUFFIX[dt]}")
-        rc = _call(sw.role, n_pad, n_pad, fn, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
-                   sw.A.width, n_pad, sw.class_size, *vecs, stream)
+        rc = _call(sw.role, n_pad, sw.A.ncols, fn, sw.A.vals.data_ptr(),
+                   sw.A.cols.data_ptr(), sw.A.width, n_pad, sw.class_size, *vecs, stream)
     else:
         _check("lens", sw.A.lens, dev, torch.int32, (n_pad,))
         _check("seg", sw.seg, dev, torch.int16, (n_pad,))
@@ -1424,9 +1439,10 @@ def class_sor_sweep(sw: ClassSweep, x, x_lag, b) -> torch.Tensor:
                              "must be a multiple of 4 and the tables 16-byte aligned")
         fn = getattr(_load(), f"mmp_class_sweep_{_SUFFIX[dt]}")
         info = (ctypes.c_int * 3)()
-        rc = _call(sw.role, n_pad, n_pad, fn, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
-                   sw.A.lens.data_ptr(), sw.seg.data_ptr(), sw.A.width, n_pad,
-                   sw.class_size, sw.window, sw.xring, *vecs, stream, info)
+        rc = _call(sw.role, n_pad, sw.A.ncols, fn, sw.A.vals.data_ptr(),
+                   sw.A.cols.data_ptr(), sw.A.lens.data_ptr(), sw.seg.data_ptr(),
+                   sw.A.width, n_pad, sw.class_size, sw.window, sw.xring, *vecs, stream,
+                   info)
         CLASS_INFO[sw.role] = tuple(info)
     _launch_ok(rc, "class_sor_sweep")
     COUNTS[sw.role] += 1

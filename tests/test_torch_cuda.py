@@ -1076,3 +1076,81 @@ def test_single_grid_probe_f64_class_sweep_matches_plain(neumann):
     for ref in ("cpu", "host"):
         r = hists[ref].numpy()
         assert np.max(np.abs(h - r) / np.abs(r)) <= 1e-10, ref
+
+
+@pytest.mark.parametrize("role", ["sweep2", gk.CLASS_PARENT])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_class_sor_sweep_rectangular_matches_plain(dtype, tol, role):
+    """The class sweep of the first 1,024 rows of the real pattern's 4,096
+    (a shard's frontier rows over its extended vector): the rows past 1,024
+    are read, never written; one launch; the sweep's tolerance; frozen
+    rows bit-equal."""
+    from meshlessmultigridpoisson_torch.probes.realsparsity import real_pattern_csr
+
+    ell = tell.ell_from_csr(real_pattern_csr(4096)[:1024], block_rows=128, ncols=4096)
+    n = ell.nrows_pad
+    assert n == 1024 and ell.ncols == 4096
+    smask = np.ones(n)
+    smask[::7] = 0.0
+    sw = gk.class_sweep(gk.device_ell(ell, dtype, "cuda", "spmv2"), ell.diag, smask,
+                        np.full(n, 1.3), np.full(n, 0.01), role=role)
+    x, b = _rand(4096, dtype, 20), _rand(n, dtype, 21)
+    xl = torch.tensor(0.3, dtype=dtype, device="cuda")
+    before = gk.COUNTS[role]
+    out = gk.class_sor_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    assert gk.COUNTS[role] == before + 1
+    ref = gk.class_sor_sweep_plain(sw, x.clone(), xl, b)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(out[n:], x[n:])
+    frozen = torch.nonzero(sw.mask == 0).flatten()
+    assert torch.equal(out[frozen], x[frozen])
+    assert int(sw.seg.max()) > 0 and int((sw.A.global_cols() >= n).sum()) > 0
+
+
+@pytest.mark.parametrize("neumann", [False, True], ids=["dirichlet", "neumann"])
+def test_shard_levels_kernels_match_plain(neumann):
+    """Every shard of both sharded levels of a 2-way partition (square,
+    600/2500, deg 4, ``shard_levels=2``): the frontier class sweep over
+    x_ext, the interior pass, the ext matvec and the ext re-solve on the
+    card against the same tables' plain versions on the CPU, f32 and f64,
+    each a launch of its role."""
+    import itertools
+
+    from meshlessmultigridpoisson_torch.models.poisson import make_poisson_problem
+    from meshlessmultigridpoisson_torch.parallel import sharded as sh
+    from meshlessmultigridpoisson_torch.parallel.partition import partition_hierarchy
+
+    prob = make_poisson_problem("square", sizes=[600, 2500], poly_deg=4, neumann=neumann)
+    shier = partition_hierarchy(prob.hierarchy, 2, shard_levels=2)
+    assert all(level.frontier_rows for level in shier.sharded)
+    for level, s in itertools.product(shier.sharded, range(2)):
+        f = level.shard(s)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-11)):
+            lv = {d: sh.shard_level(f, d, dtype, colored=False) for d in ("cuda", "cpu")}
+            x = _rand(f.ext_rows, dtype, 30 + s)
+            b = _rand(f.shard_rows, dtype, 40 + s)
+            xl = torch.tensor(0.2, dtype=dtype)
+
+            def run(d):
+                L = lv[d]
+                xe = x.to(d).clone()
+                gk.class_sor_sweep(L.front, xe, xl.to(d), b[:f.frontier_rows].to(d))
+                xo = sh.interior_sweep(L, xe[:f.shard_rows].clone(), xl.to(d), b.to(d))
+                y = gk.ell_spmv(L.A, xe)
+                bb = torch.zeros(f.ext_rows, dtype=dtype, device=d)
+                bb[:f.shard_rows] = b.to(d)
+                xr = gk.compact_rows(L.bound, xe.clone(), bb)
+                return [t.cpu() for t in (xe, xo, y, xr)]
+
+            before = dict(gk.COUNTS)
+            got = run("cuda")
+            torch.cuda.synchronize()
+            made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
+            want = {"sweep2": 1, "sweep6": 1, "spmv6": 1}
+            if neumann and lv["cuda"].bound.nrows:
+                want["bound2"] = 1
+            assert made == want, made
+            for name, g, r in zip(("frontier", "interior", "spmv", "resolve"), got,
+                                  run("cpu")):
+                assert float((g - r).abs().max()) <= tol * float(r.abs().max()), name
