@@ -117,3 +117,19 @@ REFERENCE_MG_SIZES: dict[str, Sequence[int]] = {
     "concentric_circles": (188, 650, 2581, 10207),
     "box3d": (4000, 16000, 64000, 250000, 1000000),
 }
+
+
+def reference_mg_config(num_levels: int, poly_deg: int) -> MultigridConfig:
+    """The reference program's multigrid parameters (gen_mg_param,
+    testing_functions.cpp:351-395): ``poly_deg`` on the fine level, 3 on
+    the coarse ones, omega 1.4, 5 sweeps, r^3, every transfer at the fine
+    degree."""
+    return MultigridConfig(num_levels=num_levels, fine_poly_deg=poly_deg,
+                           coarse_poly_deg=3, omega=1.4, iters=5, rbf_exp=3,
+                           transfer_poly="finest")
+
+
+def reference_fracstep_config() -> FracStepConfig:
+    """The reference program's fractional-step parameters
+    (gen_fracstep_param(4, 6, 2e-4, .025, 1, 1e-10))."""
+    return FracStepConfig()

@@ -60,29 +60,43 @@
 // (L1-allocating) loads, never the non-coherent path.  (colored_smooth,
 // whose CTAs read each other's writes, must read x at L2.)
 //
+// The stale-program sweep (role "sweep7_stale", gpu_kernels.stale_sweep):
+// the compile-time mode kStale computes the reference's
+//   meshlessmultigridpoisson_tpu/ops/kernels6.py:812
+//     sor_sweep_tpu7(stale_program=True)  (kernel body :762-809)
+// on a storage-order list that starts at a multiple of kGroup: for each
+// group of kGroup consecutive blocks (1,024 rows; the reference's MB, its
+// segments MB-aligned), every block j of the group computes
+//     t = b - A x_g - lag_col * x_lag,   x_blk = x_g,blk + K_blk t
+// with x_g x as the group began (the reference's per-program snapshot, no
+// scratch write-back), groups in order, the last one possibly partial.
+// The fixed point is the exact sweep's; only the contraction rate moves.
+// The walk: every row of the group gathers from x as it stands at the
+// group's start (rows read from device memory, prefetched into L2 a group
+// ahead), then the group's products run one after another on the K
+// buffers (two in f32 and bf16 K; one in f64, whose two 128 KB tiles would
+// not fit the card's 227 KB of shared memory).  f32, f64 and bf16 K.  It
+// is a simple walk, not yet a fast one: the group's 8 gathers run one
+// after another (a block's loads issued after the previous block's row
+// sums) and a barrier pair separates the products, so it does not yet use
+// the independence of the group's blocks, which is what the mode exists
+// for (the reference's TPU kernel drops the serial chain; PERF.md §6).
+//
 // Timing-only variants (the reference's scripts/ksweepprobe.py:110
 // make_sweep_variant; probes/ksweepprobe.py): the kernel is templated on a
 // compile-time Mode, and the production entry points instantiate kBase,
 // whose code is the same as before the variants existed (checked on the
 // SASS: probes/sassloads.py compare).  The sweep probe's "probe_base" is that
-// production f32 instance itself.  The others compute other functions, are
-// f32 only, and never reach a solve; each drops one part of a link so that
-// the base time minus the variant's is that part's cost:
+// production f32 instance itself, and its "probe_hoist" the kStale f32
+// instance (the stale sweep above).  The others compute other functions,
+// are f32 only, and never reach a solve; each drops one part of a link so
+// that the base time minus the variant's is that part's cost:
 //   kNoDot     no K product (no K staged or prefetched): x_blk += t
 //   kNoGather  no gather and row sum (no ELL rows staged or prefetched):
 //              t = b - lag_col * x_lag, then x_blk += K t
-//   kHoist     the blocks of each group of kGroup consecutive list entries
-//              all gather x as it stood when the group began (1,024 rows,
-//              read from device memory, prefetched into L2 a group ahead),
-//              then the group's kGroup products run on two K buffers; the
-//              rows the group writes are read stale.  The port's own
-//              definition: the reference's hoist fills its scratch from the
-//              first block's patch list only, an artifact of the TPU's
-//              patch-table layout.  Base minus hoist is NOT the link's
-//              wait on x: hoist has no ELL tile (its rows come from L2),
-//              gathers the group's blocks one after another (a block's
-//              loads issued after the previous block's row sums) and runs
-//              a barrier pair a product, costs that no mode separates.
+// Base minus stale is NOT the link's wait on x: the stale walk has no ELL
+// tile (its rows come from L2), gathers the group's blocks one after
+// another and runs a barrier pair a product, costs that no mode separates.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,9 +124,9 @@ constexpr int kRowsPerWarp = kBlk / kWarps;  // 8 gather rows a warp
 constexpr int kSector = 8;  // f32 values / int32 columns a 32-byte sector
 constexpr int kSteps = 2;   // 32-entry steps of each row in flight
 constexpr int kAhead = 3;   // blocks whose rows and K are prefetched into L2
-constexpr int kGroup = 8;   // blocks a kHoist group (the reference's MB)
+constexpr int kGroup = 8;   // blocks a kStale group (the reference's MB)
 
-enum ChainMode : int { kBase = 0, kHoist = 1, kNoDot = 2, kNoGather = 3 };
+enum ChainMode : int { kBase = 0, kStale = 1, kNoDot = 2, kNoGather = 3 };
 
 template <typename T>
 __device__ __forceinline__ T warp_allsum(T v) {
@@ -271,14 +285,22 @@ __device__ __forceinline__ void load_rows(const ChainArgs<T, KT>& a, int blk,
   }
 }
 
-// kHoist: groups of kGroup blocks, each gathered whole against x as the
-// group began, then its products; K on two buffers (the K tile's barrier
-// and the unused ELL barrier), block j's in buffer j & 1; t of the whole
-// group at L.t.
+// K tile buffers of the stale walk: two where they fit beside t and the
+// partial sums (f32, bf16 K), one in f64
+template <typename KT>
+__host__ __device__ constexpr int stale_kbufs() {
+  return sizeof(KT) > 4 ? 1 : 2;
+}
+
+// kStale: groups of kGroup blocks, each gathered whole against x as the
+// group began, then its products; K on stale_kbufs() buffers (the K tile's
+// barrier and the unused ELL barrier), block j's in buffer j % nk; t of the
+// whole group at L.t.
 template <typename T, typename KT>
-__device__ __forceinline__ void hoist_walk(const ChainArgs<T, KT>& a,
+__device__ __forceinline__ void stale_walk(const ChainArgs<T, KT>& a,
                                            unsigned char* smem) {
   constexpr uint32_t ktile = kBlk * kBlk * sizeof(KT);
+  constexpr int nk = stale_kbufs<KT>();
   uint64_t* kbar = reinterpret_cast<uint64_t*>(smem);
   T* t_s = reinterpret_cast<T*>(smem + a.L.t);
   T* part = reinterpret_cast<T*>(smem + a.L.part);
@@ -291,11 +313,11 @@ __device__ __forceinline__ void hoist_walk(const ChainArgs<T, KT>& a,
     mbar_init(kbar);
     mbar_init(kbar + 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < 2 && s < a.nblk; ++s) {
+    for (int s = 0; s < nk && s < a.nblk; ++s) {
       load_k(a, smem + 128 + s * ktile, kbar + s, a.order[s]);
     }
     for (int d = 0; d < 2 * kGroup && d < a.nblk; ++d) {
-      prefetch_block<kHoist>(a, a.order[d]);
+      prefetch_block<kStale>(a, a.order[d]);
     }
   }
   __syncthreads();
@@ -303,7 +325,7 @@ __device__ __forceinline__ void hoist_walk(const ChainArgs<T, KT>& a,
     const int gsize = min(kGroup, a.nblk - g);
     if (threadIdx.x == 0) {  // the group after next into L2
       for (int d = g + 2 * kGroup; d < g + 3 * kGroup && d < a.nblk; ++d) {
-        prefetch_block<kHoist>(a, a.order[d]);
+        prefetch_block<kStale>(a, a.order[d]);
       }
     }
     // every row of the group gathers from x as it stands now
@@ -325,13 +347,14 @@ __device__ __forceinline__ void hoist_walk(const ChainArgs<T, KT>& a,
       }
     }
     __syncthreads();
-    // the group's products: x_blk += K_blk t_blk
+    // the group's products: x_blk += K_blk t_blk (no block of the group
+    // writes another's rows, so x_blk is still the group's start value)
     for (int jj = 0; jj < gsize; ++jj) {
-      const int j = g + jj;
-      const int s = j & 1;
+      const unsigned j = g + jj;
+      const int s = j % nk;
       const int row0 = a.order[j] * kBlk;
       const T xo = h == 0 ? a.x[row0 + r] : T(0);
-      mbar_wait(kbar + s, (j >> 1) & 1);
+      mbar_wait(kbar + s, (j / nk) & 1);
       const KT* kb = reinterpret_cast<const KT*>(smem + 128 + s * ktile);
       const T* tb = t_s + jj * kBlk;
       T dx = T(0);
@@ -347,8 +370,8 @@ __device__ __forceinline__ void hoist_walk(const ChainArgs<T, KT>& a,
         a.x[row0 + r] = xo + sum;
       }
       __syncthreads();  // buffer s and part are free
-      if (threadIdx.x == 0 && j + 2 < a.nblk) {
-        load_k(a, smem + 128 + s * ktile, kbar + s, a.order[j + 2]);
+      if (threadIdx.x == 0 && j + nk < static_cast<unsigned>(a.nblk)) {
+        load_k(a, smem + 128 + s * ktile, kbar + s, a.order[j + nk]);
       }
     }
   }
@@ -358,8 +381,8 @@ template <typename T, typename KT, int Mode>
 __global__ void __launch_bounds__(kThreads, 1)
     storage_chain_kernel(const ChainArgs<T, KT> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (Mode == kHoist) {
-    hoist_walk(a, smem);
+  if constexpr (Mode == kStale) {
+    stale_walk(a, smem);
   } else {
     uint64_t* kbar = reinterpret_cast<uint64_t*>(smem);
     uint64_t* ebar = kbar + 1;
@@ -455,12 +478,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// kHoist's layout: two K tiles, then t of a group, then the partial sums
+// kStale's layout: its K tiles, then t of a group, then the partial sums
 template <typename T, typename KT>
-ChainLayout hoist_layout() {
+ChainLayout stale_layout() {
   ChainLayout L;
   L.ebuf = L.ecols = 0;  // no ELL tile
-  L.t = 128u + 2u * kBlk * kBlk * sizeof(KT);
+  L.t = 128u + stale_kbufs<KT>() * kBlk * kBlk * sizeof(KT);
   L.part = L.t + kGroup * kBlk * sizeof(T);
   L.total = L.part + kThreads * sizeof(T);
   return L;
@@ -478,12 +501,12 @@ int launch_chain(ChainArgs<T, KT> a, void* stream, int* info) {
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (Mode == kHoist || Mode == kNoGather) {
+  if constexpr (Mode == kStale || Mode == kNoGather) {
     a.ne = 0;
   } else {
     a.ne = chain_layout<T, KT>(1, a.width).total <= static_cast<unsigned>(optin) ? 1 : 0;
   }
-  a.L = Mode == kHoist ? hoist_layout<T, KT>() : chain_layout<T, KT>(a.ne, a.width);
+  a.L = Mode == kStale ? stale_layout<T, KT>() : chain_layout<T, KT>(a.ne, a.width);
   const unsigned bytes = a.L.total;
   if (bytes > static_cast<unsigned>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   if (info != nullptr) {
@@ -538,8 +561,26 @@ MMP_CHAIN_ENTRY(mmp_storage_chain_f32, float, float)
 MMP_CHAIN_ENTRY(mmp_storage_chain_f64, double, double)
 MMP_CHAIN_ENTRY(mmp_storage_chain_f32_bf16k, float, __nv_bfloat16)
 
+// One stale-program sweep (kStale) over the nblk blocks of order, groups of
+// kGroup consecutive entries; x in place; info as above (no ELL tile).  The
+// caller passes a storage-order list starting at a multiple of kGroup
+// (gpu_kernels.stale_sweep checks it).
+#define MMP_STALE_ENTRY(NAME, T, KT)                                         \
+  extern "C" int NAME(const T* vals, const int* cols, const int* lens,       \
+                      int width, const T* b, const T* lagc, const T* xlag,   \
+                      const KT* kT, const int* order, int nblk, T* x,        \
+                      void* stream, int* info) {                             \
+    return chain_entry<T, KT, kStale>(vals, cols, lens, width, b, lagc, xlag, \
+                                      kT, order, nblk, x, stream, info);     \
+  }
+
+MMP_STALE_ENTRY(mmp_storage_chain_stale_f32, float, float)
+MMP_STALE_ENTRY(mmp_storage_chain_stale_f64, double, double)
+MMP_STALE_ENTRY(mmp_storage_chain_stale_f32_bf16k, float, __nv_bfloat16)
+
 // The sweep probe's modes (f32, one CTA, storage order; mode a ChainMode):
-// kBase is the production f32 instance above.  Returns
+// kBase is the production f32 instance above, kStale the stale sweep's f32
+// instance.  Returns
 // cudaErrorInvalidValue for an unknown mode.
 extern "C" int mmp_chain_probe_f32(const float* vals, const int* cols,
                                    const int* lens, int width, const float* b,
@@ -551,8 +592,8 @@ extern "C" int mmp_chain_probe_f32(const float* vals, const int* cols,
       return chain_entry<float, float, kBase>(vals, cols, lens, width, b, lagc,
                                               xlag, kT, order, nblk, x, stream,
                                               info);
-    case kHoist:
-      return chain_entry<float, float, kHoist>(vals, cols, lens, width, b,
+    case kStale:
+      return chain_entry<float, float, kStale>(vals, cols, lens, width, b,
                                                lagc, xlag, kT, order, nblk, x,
                                                stream, info);
     case kNoDot:

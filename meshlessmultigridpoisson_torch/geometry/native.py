@@ -58,6 +58,13 @@ def _build_and_load():
             ctypes.c_double, ctypes.c_double,
             ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
         ]
+        lib.fg_knn.restype = None
+        lib.fg_knn.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
         lib.fg_block_color.restype = ctypes.c_int64
         lib.fg_block_color.argtypes = [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
@@ -66,6 +73,11 @@ def _build_and_load():
         ]
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the native library built and loaded."""
+    return _build_and_load() is not None
 
 
 def _dptr(a):
@@ -95,6 +107,33 @@ def poisson_disk_native(
         _dptr(out), cap,
     )
     return out[:n].copy()
+
+
+def knn_native(
+    points: np.ndarray,
+    queries: np.ndarray,
+    k: int,
+    candidate_mask: np.ndarray | None = None,
+) -> np.ndarray | None:
+    """The ``k`` nearest of ``points`` [N, 2] to each of ``queries`` [M, 2]
+    (int32 [M, k], nearest first, from the library's cell-grid search;
+    only the points where ``candidate_mask`` is set, when given), or None
+    without the library or for points that are not 2D."""
+    lib = _build_and_load()
+    if lib is None or points.shape[1] != 2:
+        return None
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    qry = np.ascontiguousarray(queries, dtype=np.float64)
+    out = np.empty((qry.shape[0], k), dtype=np.int32)
+    mask_p = None
+    if candidate_mask is not None:
+        cm = np.ascontiguousarray(candidate_mask.astype(np.uint8))
+        mask_p = cm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    lib.fg_knn(
+        _dptr(pts), pts.shape[0], _dptr(qry), qry.shape[0], k, mask_p,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return out
 
 
 def block_color_native(

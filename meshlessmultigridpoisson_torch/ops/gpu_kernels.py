@@ -24,6 +24,11 @@ CUDA kernel (role counter)         TPU kernel it replaces
                                    CTA, K and ELL rows fetched ahead
 ``block_oneshot_sweep``            the parent design of ``sweep6``, the
 (``sweep6_chain``)                 single-CTA chain (timing only)
+``storage_chain``                  ops/kernels6.py:812 ``sor_sweep_tpu7(
+(``sweep7_stale``)                 stale_program=True)``: storage-order
+                                   block GS whose groups of 8 blocks read
+                                   x as the group began (``stale_sweep``;
+                                   ``probes.rho``; no solve runs it)
 ``coarse_smooth`` (sweep7)         ops/kernels6.py:812 ``sor_sweep_tpu7``:
                                    storage-order block GS (coarsest level);
                                    a smoother call in one CTA, the level in
@@ -82,8 +87,10 @@ CUDA kernel (role counter)         TPU kernel it replaces
 ``storage_chain``                  scripts/ksweepprobe.py:110
 (``probe_base``, ``probe_hoist``,  ``make_sweep_variant``: the
 ``probe_nodot``,                   storage-order sweep (``sweep6``'s f32
-``probe_nogather``)                instance) and its timing-only variants
-                                   (``sweep_probe``; ``probes.ksweepprobe``)
+``probe_nogather``)                instance), the stale sweep (``probe_hoist``,
+                                   ``sweep7_stale``'s f32 instance) and the
+                                   timing-only variants (``sweep_probe``;
+                                   ``probes.ksweepprobe``)
 ``stream_ceiling``                 scripts/kstream.py:61 ``make_stream``: the
 (``kstream_f32i32``,               stream over four table mixes
 ``kstream_f32f32``,                (``stream_probe``; ``probes.kstream``)
@@ -182,6 +189,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "sweep8_percolor": 0, "spmv_rowwarp": 0, "sweep6_chain": 0,
+          "sweep7_stale": 0,
           "bound2": 0, "push2": 0, "ppe2": 0, "ppe2_scatter": 0, "stream14": 0,
           "sweep2": 0,
           "sweep2_tilewalk": 0,
@@ -287,7 +295,9 @@ def _load():
                 fn.restype = i
                 fn.argtypes = [p, p, p, p, i, i, p, p, i, p]
             for name in ("mmp_storage_chain_f32", "mmp_storage_chain_f64",
-                         "mmp_storage_chain_f32_bf16k"):
+                         "mmp_storage_chain_f32_bf16k", "mmp_storage_chain_stale_f32",
+                         "mmp_storage_chain_stale_f64",
+                         "mmp_storage_chain_stale_f32_bf16k"):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, p, i, p, p, p, p, p, i, p, p, ctypes.POINTER(i)]
@@ -919,6 +929,75 @@ def storage_chain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     return x
 
 
+# the stale-program sweep (csrc/storage_chain.cu, mode kStale): the
+# reference's sor_sweep_tpu7(stale_program=True)
+STALE_ROLE = "sweep7_stale"
+STALE_GROUP = 8  # blocks a group, sharing x as the group began (its MB)
+
+
+def stale_sweep_of(sw: BlockSweep) -> BlockSweep:
+    """``sw``'s tables as a role "sweep7_stale" sweep.  Refuses (one host
+    read of the order) all but one storage-order phase of consecutive block
+    ids starting at a multiple of ``STALE_GROUP``: the reference's groups
+    follow block ids (its segments are MB-aligned), not list positions."""
+    ids = sw.order.cpu().long()
+    n = ids.shape[0]
+    if (not sw.serial or sw.phase_ptr != (0, n) or n == 0 or int(ids[0]) % STALE_GROUP
+            or not torch.equal(ids, ids[0] + torch.arange(n))):
+        raise ValueError("the stale sweep walks one storage-order phase of consecutive "
+                         f"blocks from a multiple of {STALE_GROUP}")
+    return dataclasses.replace(sw, role=STALE_ROLE)
+
+
+def _stale_groups(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
+    """Per group of ``STALE_GROUP`` consecutive entries of ``sw.order``,
+    every row gathers from x as the group began, then each block adds K t
+    to its own rows (as they were at the group's start)."""
+    ids = sw.order
+    for g in range(0, ids.shape[0], STALE_GROUP):
+        _oneshot_update(sw, x, x_lag, b, ids[g:g + STALE_GROUP])
+    return x
+
+
+def stale_sweep_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
+    """Plain version of ``stale_sweep``: x in place, returned."""
+    if sw.role != STALE_ROLE:
+        raise ValueError(f"stale_sweep runs role {STALE_ROLE!r} (stale_sweep_of), "
+                         f"not {sw.role!r}")
+    return _stale_groups(sw, x, x_lag, b)
+
+
+def stale_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
+    """One stale-program sweep (role "sweep7_stale", from ``stale_sweep_of``)
+    on ``x``, in place, one ``storage_chain`` launch of mode kStale; returns
+    ``x``.  f32, f64, or bf16 K with f32 vectors.  CPU tensors:
+    ``stale_sweep_plain``."""
+    if sw.role != STALE_ROLE or not sw.serial or sw.phase_ptr != (0, sw.order.shape[0]):
+        raise ValueError(f"stale_sweep runs one phase of role {STALE_ROLE!r} "
+                         f"(stale_sweep_of), not {sw.role!r}")
+    if x.device.type == "cpu" and sw.kT.device.type == "cpu":
+        return stale_sweep_plain(sw, x, x_lag, b)
+    dev, dt, kdt = _check_block_sweep(sw, x, b, "stale_sweep")
+    if sw.A.lens is None:
+        raise ValueError("stale_sweep needs the rows' lens (device_ell builds them)")
+    if sw.kT.data_ptr() % 16:  # cp.async.bulk copies 16-byte-aligned K tiles
+        raise ValueError("stale_sweep: kT is not 16-byte aligned")
+    xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
+    _check("x_lag", xl, dev, dt, ())
+    fn = getattr(_load(), f"mmp_storage_chain_stale_{_SWEEP_SUFFIX[(dt, kdt)]}")
+    ids = sw.order
+    info = (ctypes.c_int * 2)()
+    rc = _call(sw.role, ids.shape[0] * LANES, sw.A.nrows_pad, fn, sw.A.vals.data_ptr(),
+               sw.A.cols.data_ptr(), sw.A.lens.data_ptr(), sw.A.width, b.data_ptr(),
+               sw.lagc.data_ptr(), xl.data_ptr(), sw.kT.data_ptr(), ids.data_ptr(),
+               ids.shape[0], x.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+               info)
+    _launch_ok(rc, "stale_sweep")
+    COUNTS[sw.role] += 1
+    CHAIN_INFO[sw.role] = tuple(info)
+    return x
+
+
 def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     """One full sweep (every phase) on ``x``, in place; returns ``x``.
 
@@ -929,6 +1008,8 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     of "sweep8") launch ``block_oneshot_sweep.cu`` once per phase."""
     if sw.role in PROBE_MODES:
         raise ValueError(f"role {sw.role!r} is a timing probe: sweep_probe runs it")
+    if sw.role == STALE_ROLE:
+        raise ValueError(f"role {STALE_ROLE!r} computes another sweep: stale_sweep runs it")
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         return block_oneshot_sweep_plain(sw, x, x_lag, b)
     if sw.role in FUSED_SWEEP_ROLES:
@@ -1198,20 +1279,21 @@ def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
 # The timing-only variants of the storage-order chain (the reference's
 # scripts/ksweepprobe.py make_sweep_variant), by role: storage_chain.cu's
 # compile-time mode.  "probe_base" is the production f32 instance (role
-# "sweep6"'s kernel) and computes the sweep; the others compute other
+# "sweep6"'s kernel) and computes the sweep; "probe_hoist" is the stale
+# sweep's f32 instance (role "sweep7_stale"); the others compute other
 # functions and never reach a solve.
 PROBE_MODES = {"probe_base": 0, "probe_hoist": 1, "probe_nodot": 2,
                "probe_nogather": 3}
-PROBE_GROUP = 8  # blocks per "probe_hoist" group (the reference's MB)
+PROBE_GROUP = STALE_GROUP  # blocks per "probe_hoist" group
 
 
 def sweep_probe_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     """Plain version of each probe mode, on ``x`` in place: "probe_base"
     the storage-order sweep; "probe_nodot" x_blk += t block by block;
     "probe_nogather" x_blk += K (b - lag_col x_lag) for every block at
-    once (nothing reads x); "probe_hoist" per group of ``PROBE_GROUP``
-    consecutive entries of ``sw.order``, every row gathers from x as the
-    group began, then each block adds K t."""
+    once (nothing reads x); "probe_hoist" the stale sweep (per group of
+    ``PROBE_GROUP`` consecutive entries of ``sw.order``, every row gathers
+    from x as the group began, then each block adds K t)."""
     mode = sw.role
     if mode not in PROBE_MODES:
         raise ValueError(f"{mode!r} is not a probe role")
@@ -1221,8 +1303,7 @@ def sweep_probe_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     if mode == "probe_nogather":
         _oneshot_update(sw, x, x_lag, b, ids, gather=False)
     elif mode == "probe_hoist":
-        for g in range(0, ids.shape[0], PROBE_GROUP):
-            _oneshot_update(sw, x, x_lag, b, ids[g:g + PROBE_GROUP])
+        _stale_groups(sw, x, x_lag, b)
     else:
         for j in range(ids.shape[0]):
             _oneshot_update(sw, x, x_lag, b, ids[j:j + 1], dot=False)
@@ -1233,8 +1314,9 @@ def sweep_probe(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     """One launch of a probe mode (``sw.role``) of ``storage_chain``: f32,
     one serial phase over every block (``sw.order``), one CTA, each row
     read to ``lens``; ``x`` in place.  "probe_base" launches the production
-    f32 instance itself.  Timing only: the modes other than "probe_base"
-    compute other functions."""
+    f32 instance itself, "probe_hoist" the stale sweep's (``stale_sweep``).
+    Timing only: "probe_nodot" and "probe_nogather" compute other
+    functions."""
     nb = sw.A.nrows_pad // LANES
     if sw.role not in PROBE_MODES:
         raise ValueError(f"{sw.role!r} is not a probe role")
@@ -1753,6 +1835,7 @@ def build_oneshot_K(
     omega_row: np.ndarray,
     smooth_mask: np.ndarray,
     class_size: int = 8,
+    duplicates: str = "sum",
 ) -> np.ndarray:
     """[nb, 128, 128] transposed one-shot matrices K^T (f64 host math).
 
@@ -1760,7 +1843,13 @@ def build_oneshot_K(
     x += M^-1 (b - A x) with M = D/omega + L (L the strictly-lower
     class-block part of the in-block coupling); K = M^-1 per block, rows the
     smoother does not update zeroed (ops/kernels4.py:build_oneshot_K).
+    ``duplicates``: "sum" adds every entry of a row that names one column
+    twice (the port's rule: the sweep is then exact block GS); "reference"
+    keeps one of them, as the reference's fancy-index ``+=`` does (its
+    records were measured with that K; ``probes.rho`` reproduces them).
     """
+    if duplicates not in ("sum", "reference"):
+        raise ValueError(f"duplicates {duplicates!r} is not 'sum' or 'reference'")
     n_pad = ell.nrows_pad
     nb = n_pad // LANES
     gc = global_cols(ell).numpy().astype(np.int64)
@@ -1776,7 +1865,10 @@ def build_oneshot_K(
     in_mask = own & (gc != rows)
     abb = np.zeros((nb, LANES, LANES))
     bi, wi = np.nonzero(in_mask)
-    np.add.at(abb, (bi >> 7, bi & 127, gc[bi, wi] & 127), vv[bi, wi])
+    if duplicates == "sum":
+        np.add.at(abb, (bi >> 7, bi & 127, gc[bi, wi] & 127), vv[bi, wi])
+    else:
+        abb[bi >> 7, bi & 127, gc[bi, wi] & 127] += vv[bi, wi]
 
     lane = np.arange(LANES)
     lower = (lane[:, None] // class_size) > (lane[None, :] // class_size)
@@ -1888,7 +1980,9 @@ COLORED_MAX_SLOTS = 96  # scratch slots of a program, first tier
 COLORED_MAX_SLOTS_WIDE = 256  # second tier (i16 slot packing)
 
 
-def colored_refusal(pids: np.ndarray, nb: int, colors: np.ndarray) -> str | None:
+def colored_refusal(pids: np.ndarray, nb: int, colors: np.ndarray,
+                    min_blocks: int = COLORED_MIN_BLOCKS,
+                    max_expand: float = COLORED_MAX_EXPAND) -> str | None:
     """Why the reference's colored sweep would refuse this level, or None.
 
     Mirrors ops/kernels8.py ``prepare_colored_sweep`` on the single-segment
@@ -1898,21 +1992,24 @@ def colored_refusal(pids: np.ndarray, nb: int, colors: np.ndarray) -> str | None
     block count past 2.0, and a program's scratch, ``mb`` own slots plus
     the patches its blocks read outside it rounded up to 8, must fit 96
     slots; failing that, any ``mb`` within 256 slots (the wide tier).
+    ``min_blocks`` and ``max_expand`` replace the 32 blocks and the 2.0
+    (the reference's arguments of those names; ``probes.rho`` passes its
+    ``scripts/rho_colored.py``'s 2 and 3.0).
     The block order and the math are the port's own either way: this only
     decides whether the level runs colored ("v8-colored") or in storage
     order ("v7-exact"/"v6-oneshot"), as the reference does.  At ``mb`` 2 a
     color pads by at most one block, so the expansion alone never refuses.
     """
-    if nb < COLORED_MIN_BLOCKS:
-        return f"colored sweep loses below {COLORED_MIN_BLOCKS} blocks (nb={nb})"
+    if nb < min_blocks:
+        return f"colored sweep loses below {min_blocks} blocks (nb={nb})"
     pids = np.asarray(pids).reshape(nb, -1)
     by_color = [np.flatnonzero(colors == c) for c in range(int(colors.max()) + 1)]
     why, wide = None, False
     for mb in COLORED_MB:
         order = np.concatenate([np.concatenate([b, np.repeat(b[-1], -b.size % mb)])
                                 for b in by_color])
-        if order.size / nb > COLORED_MAX_EXPAND:
-            why = f"expansion {order.size / nb:.2f} > {COLORED_MAX_EXPAND} at mb={mb}"
+        if order.size / nb > max_expand:
+            why = f"expansion {order.size / nb:.2f} > {max_expand} at mb={mb}"
             continue
         max_others = 0
         for prog in order.reshape(-1, mb):

@@ -15,34 +15,38 @@ tile, barrier) is split by compile-time variants of that kernel
   prefetched), t = b - lag_col * x_lag;
 * ``probe_nodot``: no K product (no K staged or prefetched), x_blk += t
   (on A / 128, so that the chain stays finite);
-* ``probe_hoist``: the blocks of each group of 8 consecutive blocks all
-  gather x as it stood when the group began (their rows read from device
-  memory, prefetched into L2), then the group's 8 products run on two K
-  buffers, so no x load waits on an update of its group.  This is the
-  port's own definition of the reference's "stale x loads" variant, whose
-  output depends on the TPU's patch-table layout.
+* ``probe_hoist``: the stale-program sweep's f32 instance itself (role
+  ``sweep7_stale``, the reference's ``sor_sweep_tpu7(stale_program=True)``):
+  the blocks of each group of 8 consecutive blocks all gather x as it
+  stood when the group began (their rows read from device memory,
+  prefetched into L2), then the group's 8 products run on two K buffers,
+  so no x load waits on an update of its group.  It stands for the
+  reference's "stale x loads" variant, whose output depends on the TPU's
+  patch-table layout.
 
-Only ``probe_base`` computes the sweep; the others are timing only and
-never reach a solve.  The operator is the kernel bench's
-(``bench.build_operator()``: 1,048,576 rows, k 70, band 512, 8,192 blocks,
-one-shot K at omega 1.4, the reference's ``scripts/kcache.py build``
-operator); x from seed 1, b from seed 2, no Lagrange column, x_lag 0.
-Each mode is held against its plain version (``gpu_kernels.
-sweep_probe_plain``) on the same inputs (``TOL``, relative to max |plain
-output|), ``probe_base`` also bit for bit against a ``sweep6`` sweep
-(``gpu_kernels.storage_chain``), then timed: ``iters`` sweeps chained in
-place from x, between CUDA events (``utils.profiling.chain_time``, each
-run from a fresh copy of x), the median of three runs.  Each line gives ms per sweep, us per
-block, the bound of the mode's own work (``profiling.probe_bytes`` /
-``probe_flops``) and the plain version's ms; the JSON line that ends the
-output splits ``probe_base``'s time per block into the gather
-(base - nogather) and the K product (base - nodot), and gives
-``probe_hoist``'s time per block beside base's.  Base minus hoist is not
-the wait of x loads on the chain: hoist runs another loop with costs of
-its own that no mode separates (no ELL tile, so its rows come from L2;
-the group's 8 blocks gathered one after another, each block's loads
-issued after the previous block's row sums; a barrier pair a product),
-so that wait stays unmeasured.
+``probe_base`` and ``probe_hoist`` compute the exact and the stale sweep
+(each held bit for bit against its production role, the JSON line's
+``instances``); the other two are timing only and never reach a solve.  The
+operator is the kernel bench's (``bench.build_operator()``: 1,048,576
+rows, k 70, band 512, 8,192 blocks, one-shot K at omega 1.4, the
+reference's ``scripts/kcache.py build`` operator); x from seed 1, b from
+seed 2, no Lagrange column, x_lag 0.  Each mode is held against its plain
+version (``gpu_kernels.sweep_probe_plain``) on the same inputs (``TOL``,
+relative to max |plain output|), ``probe_base`` also bit for bit against a
+``sweep6`` sweep (``gpu_kernels.storage_chain``) and ``probe_hoist``
+against a ``sweep7_stale`` one (``gpu_kernels.stale_sweep``), then timed:
+``iters`` sweeps chained in place from x, between CUDA events
+(``utils.profiling.chain_time``, each run from a fresh copy of x), the
+median of three runs.  Each line gives ms per sweep, us per block, the
+bound of the mode's own work (``profiling.probe_bytes`` / ``probe_flops``)
+and the plain version's ms; the JSON line that ends the output splits
+``probe_base``'s time per block into the gather (base - nogather) and the
+K product (base - nodot), and gives ``probe_hoist``'s time per block
+beside base's.  Base minus hoist is not the wait of x loads on the chain:
+hoist runs another loop with costs of its own that no mode separates (no
+ELL tile, so its rows come from L2; the group's 8 blocks gathered one
+after another, each block's loads issued after the previous block's row
+sums; a barrier pair a product), so that wait stays unmeasured.
 Without a card it exits non-zero.
 """
 
@@ -58,6 +62,9 @@ import torch
 
 ITERS = 5
 MODES = ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")
+# the modes that launch a production role's kernel instance
+INSTANCES = {"probe_base": "the sweep6 f32 instance",
+             "probe_hoist": "the sweep7_stale f32 instance"}
 # kernel vs plain, relative to max |plain output|: the 128-term K product
 # and the ~70-term row sums in another order (f32)
 TOL = 1e-4
@@ -125,10 +132,12 @@ def run(iters: int = ITERS, seed: int = 0, op: dict | None = None) -> dict:
         err, scale = float((out - ref).abs().max()), float(ref.abs().max())
         if not err <= TOL * scale:
             raise AssertionError(f"{role}: kernel vs plain {err / scale:.3e} > {TOL:.0e}")
-        if role == "probe_base":  # the production sweep6 instance, bit for bit
-            prod = gk.storage_chain(dataclasses.replace(sw, role="sweep6"), x0.clone(), zl, b)
+        if role in INSTANCES:  # the production role's instance, bit for bit
+            prod_sw = dataclasses.replace(sw, role="sweep6")
+            prod = (gk.storage_chain(prod_sw, x0.clone(), zl, b) if role == "probe_base"
+                    else gk.stale_sweep(gk.stale_sweep_of(prod_sw), x0.clone(), zl, b))
             if not torch.equal(prod, out):
-                raise AssertionError("probe_base is not the production sweep6 chain")
+                raise AssertionError(f"{role} is not {INSTANCES[role]}")
             del prod
         del out, ref
         ms = pf.chain_time(lambda v: gk.sweep_probe(sw, v, zl, b), x0, k=iters, reps=3,
@@ -147,7 +156,8 @@ def run(iters: int = ITERS, seed: int = 0, op: dict | None = None) -> dict:
     log("per block: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     return {"probe": "ksweepprobe", "n": n_pad, "blocks": nb, "iters": iters,
             "seed": seed, "card": info["name"], "power_limit": info["power_limit"],
-            "host_setup_s": setup_s, "kernels": rows, "split_per_block": split}
+            "host_setup_s": setup_s, "kernels": rows, "split_per_block": split,
+            "instances": INSTANCES}
 
 
 def main(argv=None) -> None:

@@ -35,6 +35,17 @@ def monomial_exponents(poly_deg: int, dim: int = 2) -> np.ndarray:
     return np.asarray(exps, dtype=np.int64)
 
 
+def shift_scale(pts: torch.Tensor, eval_pt: torch.Tensor):
+    """Normalize one stencil: (scaled points [k, d], scaled eval point [d],
+    scale), shifted by the neighbor set's minimum and divided by its
+    largest coordinate range (shifting_scaling,
+    general_computation_functions.cpp:82-107); ``batched_weights`` does
+    the same for a batch."""
+    lo = pts.amin(dim=0)
+    scale = (pts.amax(dim=0) - lo).amax()
+    return (pts - lo) / scale, (eval_pt - lo) / scale, scale
+
+
 def _powfix(base: torch.Tensor, expo: torch.Tensor) -> torch.Tensor:
     """x**e with 0**0 = 1 and 0 wherever e < 0 (derivative of a constant)."""
     return torch.where(expo >= 0, base ** expo.clamp(min=0), torch.zeros_like(base))

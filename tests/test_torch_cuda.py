@@ -185,6 +185,39 @@ def test_block_sweep_bf16k_matches_plain(et, role, serial):
     assert float((out - ref32).abs().max()) <= 5e-2 * float((ref32 - x).abs().max())
 
 
+STALE_CASES = [(torch.float32, None, 1e-4), (torch.float64, None, 1e-11),
+               (torch.float32, torch.bfloat16, 1e-2)]
+
+
+@pytest.mark.parametrize("dtype,kdt,tol", STALE_CASES, ids=["f32", "f64", "bf16k"])
+@pytest.mark.parametrize("start", [0, 8])
+def test_stale_sweep_counts_and_matches_plain(et, dtype, kdt, tol, start):
+    """The stale-program mode of ``storage_chain`` (role ``sweep7_stale``)
+    in one launch against its plain version: the fixture's 11 blocks from
+    block 0 (a last group of 3) and from block 8 (one partial group); rows
+    outside the order untouched; bf16 K against the bf16 plain version
+    within 1e-2 of max |dx|."""
+    sw = _sweep(et, dtype, True, "sweep6", k_dtype=kdt)
+    nb = sw.order.shape[0]
+    sw = gk.stale_sweep_of(dataclasses.replace(sw, order=sw.order[start:].contiguous(),
+                                               phase_ptr=(0, nb - start)))
+    x, b = _rand(et.nrows_pad, dtype, 21), _rand(et.nrows_pad, dtype, 22)
+    xl = torch.tensor(0.3, dtype=dtype, device="cuda")
+    before = dict(gk.COUNTS)
+    out = gk.stale_sweep(sw, x.clone(), xl, b)
+    torch.cuda.synchronize()
+    made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
+    assert made == {gk.STALE_ROLE: 1}
+    ref = gk.stale_sweep_plain(sw, x.clone(), xl, b)
+    scale = (ref - x).abs().max() if kdt is not None else ref.abs().max()
+    assert float((out - ref).abs().max()) <= tol * float(scale)
+    assert torch.equal(out[: start * 128], x[: start * 128])
+    if kdt is None:  # not the exact sweep: later blocks of a group read stale rows
+        exact = gk.block_oneshot_sweep_plain(dataclasses.replace(sw, role="sweep6"),
+                                             x.clone(), xl, b)
+        assert float((exact - ref).abs().max()) > 30 * tol * float(scale)
+
+
 def test_percolor_sweep_launches_a_color_each_and_matches_plain(et):
     """``sweep8_percolor``, the parent design of the colored sweep (one
     launch per color), kept as a timing role."""

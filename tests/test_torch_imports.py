@@ -38,7 +38,8 @@ SLICE_MODULES = (
     "probes.chaintime", "probes.kiso6", "probes.kiso7", "probes.kiso8",
     "probes.launchrank", "probes.blockgraph", "probes.solve3d", "io", "io.bundle",
     "parallel", "parallel.partition", "parallel.runtime", "parallel.sharded",
-    "parallel.dryrun", "probes.shard_timing", "probes.shard_solve",
+    "parallel.dryrun", "probes.shard_timing", "probes.shard_solve", "probes.rho",
+    "probes.vcycle_breakdown",
 )
 
 # the CLI's sub-commands beside solve and ns, and solve's setup cache and

@@ -18,12 +18,24 @@ import time
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 from meshlessmultigridpoisson_tpu.geometry import native as jnative
 from meshlessmultigridpoisson_tpu.geometry import pointclouds as jclouds
 
 from meshlessmultigridpoisson_torch.geometry import native as tnative
 from meshlessmultigridpoisson_torch.geometry import pointclouds as tclouds
+
+# One BLAS / OpenMP thread a test process.  The suite runs in several
+# worker processes, each of which imports every test module while it
+# collects; with the BLAS's default of a thread per core in each, the
+# workers oversubscribe the host and its spinning threads stall them
+# (on an 8-core host, a batched 128 x 128 inverse that takes 0.7 s alone
+# ran for over 40 min beside six such processes).  The processes the tests
+# spawn inherit the variables.
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+BLAS_LIMIT = threadpool_limits(limits=1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE_LIB = os.path.join(REPO, "csrc", "libfastgeom.so")
