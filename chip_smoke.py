@@ -34,11 +34,12 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    level (``sweep6``, ``storage_chain``: the exact path's L3) in f32, bf16
    K and f64 against its plain version and the parent chain
    (``sweep6_chain``), one sweep timed in turns parent, kernel, kernel,
-   parent; on the same tables the stale-program mode (``sweep7_stale``,
-   ``storage_chain``'s kStale: the reference's ``sor_sweep_tpu7(
-   stale_program=True)``) in f32, bf16 K and f64, one launch counted,
-   against its plain version, one sweep timed in turns sweep6, stale,
-   stale, sweep6;
+   parent; on the same tables the stale-program sweep (the reference's
+   ``sor_sweep_tpu7(stale_program=True)``: ``sweep7_stale``,
+   ``storage_chain.cu``'s cluster kernel, and its first design, the walk
+   ``sweep7_stale_walk``, mode kStale) in f32, bf16 K and f64, one launch
+   of each counted, each against its plain version, one sweep timed in
+   turns cluster, walk, walk, cluster, then ``sweep6``;
    the fused smoother (``block_smooth``, ``csrc/block_smooth.cu``) on the
    Dirichlet fine and coarsest levels in f32, f64 and bf16 K: one call of
    the level's 5 sweeps held against its plain version (counted once, a
@@ -163,7 +164,8 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    a smoother call (``sweep7`` = 3 x ``sweep8``: V-cycles = ``sweep7`` /
    6), ``bound2`` exactly one a PPE pass and one a step, ``ppe2`` exactly
    one a compatible matvec (counted from the passes' inner iterations),
-   no ``ppe2_scatter``, every
+   no ``ppe2_scatter``, no PPE solve stopped above its tolerance
+   (``extra.ppe_over_tol`` empty), every
    fs_residual finite, the steps 0, 4, 8, ... matching the reference's TPU
    record ``results/ns_tpu_r5.json`` within 2e-3 relative, and the last
    step's PPE solve (before the p_relax blend) re-checked with a plain f64
@@ -242,7 +244,7 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    then ``probes.ksweepprobe`` with 3 sweeps (the four modes of
    ``sweep_probe``, compile-time modes of ``storage_chain``; ``probe_base``
    also bit for bit against a ``sweep6`` sweep, ``probe_hoist`` against a
-   ``sweep7_stale`` one), each in-process with its counts set to 0 before and
+   ``sweep7_stale_walk`` one), each in-process with its counts set to 0 before and
    read after; each probe holds every kernel or mode against its plain
    version before timing it; every role launched, each at or above its
    bound; prints the chain's split per block;
@@ -324,9 +326,12 @@ ROLES = {
                      "meshlessmultigridpoisson_tpu/ops/kernels8.py:376"),
     "sweep6": ("storage_chain", "meshlessmultigridpoisson_torch/csrc/storage_chain.cu",
                "meshlessmultigridpoisson_tpu/ops/kernels6.py:515"),
-    "sweep7_stale": ("storage_chain (stale-program mode)",
+    "sweep7_stale": ("stale_cluster (storage_chain.cu, a cluster of 8 CTAs)",
                      "meshlessmultigridpoisson_torch/csrc/storage_chain.cu",
                      "meshlessmultigridpoisson_tpu/ops/kernels6.py:812"),
+    "sweep7_stale_walk": ("storage_chain (stale-program mode, parent design)",
+                          "meshlessmultigridpoisson_torch/csrc/storage_chain.cu",
+                          "meshlessmultigridpoisson_tpu/ops/kernels6.py:812"),
     "sweep6_chain": ("block_oneshot_sweep",
                      "meshlessmultigridpoisson_torch/csrc/block_oneshot_sweep.cu",
                      "meshlessmultigridpoisson_tpu/ops/kernels6.py:515"),
@@ -981,30 +986,32 @@ def main(argv=None) -> int:
                dtype, extra=dict(link_us=1e3 * tp / nb))
 
     def check_stale(label, sw):
-        """The stale-program mode (``sweep7_stale``: ``storage_chain``'s
-        kStale, the reference's ``sor_sweep_tpu7(stale_program=True)``) on
-        storage-order sweep ``sw``'s tables: one launch counted, against its
-        plain version; then one sweep timed against the exact chain
-        (``sweep6``) in turns sweep6, stale, stale, sweep6 (single launches
-        of 0.5-10 ms: the chain time is the device time).  Its bound is the
-        exact sweep's (the same bytes, row 6')."""
+        """The stale-program sweep (the reference's ``sor_sweep_tpu7(
+        stale_program=True)``) on storage-order sweep ``sw``'s tables: its
+        cluster kernel (``sweep7_stale``) and the walk (``sweep7_stale_walk``,
+        the first design), one launch each counted, each against its plain
+        version; then one sweep timed in turns cluster, walk, walk, cluster,
+        then the exact chain (``sweep6``) once (single launches of 0.5-10
+        ms: the chain time is the device time).  Their bound is the exact
+        sweep's (the same bytes, row 6')."""
         dtype = sw.A.vals.dtype
         n = sw.A.nrows_pad
         nb = n // gk.LANES
-        st = gk.stale_sweep_of(sw)
+        sides = {r: gk.stale_sweep_of(sw, r) for r in gk.STALE_ROLES}
         x0 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
         b = torch.randn(n, generator=gen, dtype=torch.float64).to(dev, dtype)
         xl = torch.tensor(0.3, dtype=dtype, device=dev)
-        before = dict(gk.COUNTS)
-        xk = gk.stale_sweep(st, x0.clone(), xl, b)
-        torch.cuda.synchronize()
-        made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
-        if made != {gk.STALE_ROLE: 1}:
-            raise AssertionError(f"stale_sweep {label}: launches {made}, not one "
-                                 f"{gk.STALE_ROLE}")
-        staging = gk.CHAIN_INFO[gk.STALE_ROLE]
+        out, staging = {}, {}
+        for role, st in sides.items():
+            before = dict(gk.COUNTS)
+            out[role] = gk.stale_sweep(st, x0.clone(), xl, b)
+            torch.cuda.synchronize()
+            made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
+            if made != {role: 1}:
+                raise AssertionError(f"stale_sweep {label}: launches {made}, not one {role}")
+            staging[role] = gk.CHAIN_INFO[role]
         t0 = time.perf_counter()
-        xp = gk.stale_sweep_plain(st, x0.clone(), xl, b)
+        xp = gk.stale_sweep_plain(sides[gk.STALE_ROLE], x0.clone(), xl, b)
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
         if sw.kT.dtype == torch.bfloat16:
@@ -1012,20 +1019,28 @@ def main(argv=None) -> int:
         else:
             dt, scale = dname(dtype), float(xp.abs().max())
         k = 2 if nb > 2000 else 5
-        ops = {"sweep6": lambda v: gk.storage_chain(sw, v, xl, b),
-               "stale": lambda v: gk.stale_sweep(st, v, xl, b)}
-        t = [ms_of(ops[side], x0.clone(), k) for side in ("sweep6", "stale", "stale", "sweep6")]
-        tk, te = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        print(f"  A/B stale-program sweep {dt} {label} ({nb} blocks, {-(-nb // 8)} groups of "
-              f"8, width {sw.A.width}; ELL tile, shared bytes {staging}): ms sweep6 "
-              f"{t[0]:.4f} / stale {t[1]:.4f} / stale {t[2]:.4f} / sweep6 {t[3]:.4f}; a "
-              f"block {1e3 * tk / nb:.2f} us (sweep6 {1e3 * te / nb:.2f}) ({card})",
-              flush=True)
-        record(gk.STALE_ROLE, f"storage_chain stale-program mode {dt} {label}, one sweep",
-               ("sweep", dt), float((xk - xp).abs().max()), scale, tk, pms,
-               pf.sweep_bytes(sw), pf.sweep_flops(sw), dtype,
-               extra=dict(sweep6_ms=te, chain_ab_ms=t, staging=staging,
-                          link_us=1e3 * tk / nb))
+        ops = {"cluster": lambda v: gk.stale_sweep(sides[gk.STALE_ROLE], v, xl, b),
+               "walk": lambda v: gk.stale_sweep(sides[gk.STALE_WALK], v, xl, b),
+               "sweep6": lambda v: gk.storage_chain(sw, v, xl, b)}
+        turns = ("cluster", "walk", "walk", "cluster", "sweep6")
+        t = [ms_of(ops[side], x0.clone(), k) for side in turns]
+        tk, tw, te = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t[4]
+        groups = -(-nb // gk.STALE_GROUP)
+        print(f"  A/B stale-program sweep {dt} {label} ({nb} blocks, {groups} groups of "
+              f"8, width {sw.A.width}; cluster (K tiles, shared bytes) "
+              f"{staging[gk.STALE_ROLE]}, walk (ELL tile, shared bytes) "
+              f"{staging[gk.STALE_WALK]}): ms cluster "
+              f"{t[0]:.4f} / walk {t[1]:.4f} / walk {t[2]:.4f} / cluster {t[3]:.4f} / "
+              f"sweep6 {t[4]:.4f}; a group {1e3 * tk / groups:.2f} us (walk "
+              f"{1e3 * tw / groups:.2f}) ({card})", flush=True)
+        for role, ms, other in ((gk.STALE_ROLE, tk, tw), (gk.STALE_WALK, tw, tk)):
+            record(role, f"{ROLES[role][0].split(' ')[0]} stale-program {dt} {label}, "
+                   f"one sweep", ("sweep", dt), float((out[role] - xp).abs().max()), scale,
+                   ms, pms, pf.sweep_bytes(sw), pf.sweep_flops(sw), dtype,
+                   extra=dict(sweep6_ms=te, stale_ab_ms=dict(zip(
+                       [f"{i}_{s}" for i, s in enumerate(turns)], t)),
+                       staging=staging[role], group_us=1e3 * ms / groups,
+                       other_design_ms=other))
 
     def check_sweep(label, sw):
         dtype = sw.A.vals.dtype
@@ -1742,6 +1757,11 @@ def main(argv=None) -> int:
           flush=True)
     if got != want:
         return fail(f"ns: launches {got}, not {want}")
+    over = ex["ppe_over_tol"]
+    print(f"ns: PPE solves that stopped above the tolerance: {len(over)} of "
+          f"{NS_STEPS} (steps {over})", flush=True)
+    if over:
+        return fail(f"ns: the PPE solves of steps {over} stopped above the tolerance")
     hist = rec.residual_history  # every step while steps < 1000
     if len(hist) != NS_STEPS or not all(math.isfinite(h) for h in hist):
         return fail(f"ns: fs_residual history not finite or short: {hist}")
@@ -2085,7 +2105,8 @@ def main(argv=None) -> int:
                                                      "parent_device_ms", "pct_of_bound",
                                                      "device_ab_ms", "parent_ms",
                                                      "chain_ab_ms", "link_us", "fill",
-                                                     "sweep6_ms")
+                                                     "sweep6_ms", "stale_ab_ms",
+                                                     "group_us", "other_design_ms")
                                    if c.get(k) is not None}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)

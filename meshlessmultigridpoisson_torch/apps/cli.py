@@ -142,8 +142,9 @@ def _parser() -> argparse.ArgumentParser:
     pn.add_argument("--rho", type=float, default=1.0)
     pn.add_argument("--ppe-tol", type=float, default=1e-10)
     pn.add_argument("--reference-ppe", action="store_true",
-                    help="strict reference PPE (no compatible projection); "
-                         "not implemented on this path: raises")
+                    help="strict reference PPE (no compatible projection), the "
+                         "host f64 model with BiCGStab: --device cpu only (the "
+                         "device path refuses it, as the reference's does)")
     pn.add_argument("--implicit-diffusion", action="store_true",
                     help="backward-Euler viscosity (needed at deg 6 + fine N)")
     pn.add_argument("--p-relax", type=float, default=0.7)
@@ -492,7 +493,8 @@ def run_ns(argv=None):
     """Parse ``ns`` arguments and run it; returns (record, problem, last
     PPE solve): the last step's PPE right-hand side ``b`` and its solution
     ``x``, ``x_lag`` before the ``p_relax`` blend, all f64 on the host in
-    the fine level's permuted padded rows."""
+    the fine level's permuted padded rows (empty with ``--reference-ppe``,
+    the host path: ``_ns_strict``)."""
     import time
 
     import torch
@@ -509,17 +511,19 @@ def run_ns(argv=None):
     from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord
 
     args = _args(argv, "ns")
-    dev = _device(args.device)
-    log = _log
-    if args.reference_ppe:
+    if args.reference_ppe and args.device == "cuda":
         raise NotImplementedError(
             "the device fractional-step path implements the compatible "
-            "div∘grad PPE only; --reference-ppe is not available here")
+            "div∘grad PPE only; --reference-ppe runs on --device cpu")
+    dev = _device(args.device)
+    log = _log
     cfg = FracStepConfig(dt=args.dt, mu=args.mu, rho=args.rho,
                          ppe_tol=args.ppe_tol, max_steps=args.steps,
                          p_relax=args.p_relax,
                          diffusion="implicit" if args.implicit_diffusion
                          else "explicit")
+    if args.reference_ppe:
+        return _ns_strict(args, cfg, dev)
     with Timer() as t_setup:
         prob = fs.build_fracstep_problem(sizes=list(args.sizes), poly_deg=args.deg,
                                          config=cfg, msh_files=args.msh, device=dev)
@@ -539,6 +543,7 @@ def run_ns(argv=None):
     log(f"level kernels: {rec.extra['level_kernels']}")
 
     err_hist, outer, inner, passes, ppe_res, step_s, last = [], [], [], [], [], [], {}
+    over = []  # steps whose PPE solve stopped above --ppe-tol
     t_prev = [time.perf_counter()]
 
     def on_step(i, state, st):
@@ -549,6 +554,8 @@ def run_ns(argv=None):
         inner.append([its for its, _, _ in st["ppe_passes"]])
         passes.append(st["ppe_passes"])
         ppe_res.append(st["ppe_residual"])
+        if not st["ppe_converged"]:
+            over.append(i)
         last.clear()
         last.update(b=state.mg.b[-1], x=st["p_solve"], x_lag=st["pl_solve"])
         if i % 50 == 0:
@@ -573,7 +580,11 @@ def run_ns(argv=None):
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
         launches={k: v - before[k] for k, v in gpu_kernels.COUNTS.items()},
         setup_time_s=t_setup.elapsed, step_time_s=step_s, ppe_outer=outer,
-        ppe_inner_iters=inner, ppe_passes=passes, ppe_residual=ppe_res)
+        ppe_inner_iters=inner, ppe_passes=passes, ppe_residual=ppe_res,
+        ppe_over_tol=over)
+    if over:
+        log(f"{len(over)} of {args.steps} PPE solves stopped above --ppe-tol "
+            f"{args.ppe_tol:.0e}: steps {over}")
     if args.profile:
         s_dev = state_to(state, dev)
 
@@ -586,6 +597,46 @@ def run_ns(argv=None):
     if args.out:
         rec.save(args.out)
     return rec, prob, {k: v.cpu() for k, v in last.items()}
+
+
+def _ns_strict(args, cfg, dev):
+    """``ns --reference-ppe`` on the host: the strict PPE (no compatible
+    projection), each step the host f64 ``models/fracstep.timestep`` with
+    its BiCGStab, as the reference's CPU branch (its ``apps/cli.py``
+    ``_ns``).  Returns (record, problem, {}): no device PPE solve."""
+    from meshlessmultigridpoisson_torch.models import fracstep as fs
+    from meshlessmultigridpoisson_torch.utils.metrics import SolveRecord
+
+    with Timer() as t_setup:
+        prob = fs.build_fracstep_problem(sizes=list(args.sizes), poly_deg=args.deg,
+                                         config=cfg, compatible_ppe=False,
+                                         msh_files=args.msh, device=dev)
+    _log(f"setup: {t_setup.elapsed:.1f}s")
+    rec = SolveRecord(
+        name="fracstep-kovasznay",
+        config=dict(sizes=[c.n for c in prob.clouds], deg=args.deg, dt=args.dt,
+                    steps=args.steps, compatible=False, platform=dev.type,
+                    msh=args.msh),
+    )
+    state, hist, err_hist = prob.state0, [], []
+    with Timer() as t:
+        for i in range(args.steps):
+            state, res = fs.timestep(prob, state, ppe_solver="bicgstab")
+            hist.append(float(res))
+            if i % 50 == 0:
+                err = fs.u_error_vs_kovasznay(prob, state)
+                err_hist.append([i, err])
+                _log(f"step {i}: fs_res={hist[-1]:.3e} u_err={err:.3e}")
+    rec.wall_time_s = t.elapsed
+    rec.residual_history = hist[:: max(1, len(hist) // 500)]
+    rec.l1_error = fs.u_error_vs_kovasznay(prob, state)
+    rec.final_residual = hist[-1]
+    rec.cycles = args.steps
+    rec.extra.update(u_err_history=err_hist, final_u_l1_error_vs_kovasznay=rec.l1_error,
+                     setup_time_s=t_setup.elapsed, device="cpu")
+    if args.out:
+        rec.save(args.out)
+    return rec, prob, {}
 
 
 def run_probe(argv=None):

@@ -60,8 +60,8 @@
 // (L1-allocating) loads, never the non-coherent path.  (colored_smooth,
 // whose CTAs read each other's writes, must read x at L2.)
 //
-// The stale-program sweep (role "sweep7_stale", gpu_kernels.stale_sweep):
-// the compile-time mode kStale computes the reference's
+// The stale-program sweep (role "sweep7_stale", gpu_kernels.stale_sweep)
+// computes the reference's
 //   meshlessmultigridpoisson_tpu/ops/kernels6.py:812
 //     sor_sweep_tpu7(stale_program=True)  (kernel body :762-809)
 // on a storage-order list that starts at a multiple of kGroup: for each
@@ -71,24 +71,25 @@
 // with x_g x as the group began (the reference's per-program snapshot, no
 // scratch write-back), groups in order, the last one possibly partial.
 // The fixed point is the exact sweep's; only the contraction rate moves.
-// The walk: every row of the group gathers from x as it stands at the
-// group's start (rows read from device memory, prefetched into L2 a group
-// ahead), then the group's products run one after another on the K
-// buffers (two in f32 and bf16 K; one in f64, whose two 128 KB tiles would
-// not fit the card's 227 KB of shared memory).  f32, f64 and bf16 K.  It
-// is a simple walk, not yet a fast one: the group's 8 gathers run one
-// after another (a block's loads issued after the previous block's row
-// sums) and a barrier pair separates the products, so it does not yet use
-// the independence of the group's blocks, which is what the mode exists
-// for (the reference's TPU kernel drops the serial chain; PERF.md §6).
-//
+// Its kernel is stale_cluster_kernel below: a cluster of kGroup CTAs, the
+// group's blocks gathered and multiplied side by side, only the
+// group-to-group dependence on the chain.  f32, f64 and bf16 K.
+// The first design, the compile-time mode kStale of storage_chain_kernel,
+// is kept as the timing role "sweep7_stale_walk" (and as probe_hoist):
+// one CTA gathers the group's rows against x as the group began, block
+// after block (a block's loads issued after the previous block's row
+// sums; rows from device memory, prefetched into L2 a group ahead), then
+// runs the group's products one after another on the K buffers (two in
+// f32 and bf16 K; one in f64, whose two 128 KB tiles would not fit the
+// card's 227 KB of shared memory), a barrier pair a product.
+
 // Timing-only variants (the reference's scripts/ksweepprobe.py:110
 // make_sweep_variant; probes/ksweepprobe.py): the kernel is templated on a
 // compile-time Mode, and the production entry points instantiate kBase,
 // whose code is the same as before the variants existed (checked on the
 // SASS: probes/sassloads.py compare).  The sweep probe's "probe_base" is that
 // production f32 instance itself, and its "probe_hoist" the kStale f32
-// instance (the stale sweep above).  The others compute other functions,
+// instance (the stale walk above).  The others compute other functions,
 // are f32 only, and never reach a solve; each drops one part of a link so
 // that the base time minus the variant's is that part's cost:
 //   kNoDot     no K product (no K staged or prefetched): x_blk += t
@@ -231,8 +232,10 @@ __device__ __forceinline__ void load_e(const ChainArgs<T, KT>& a,
 // acc[q] = (A x) of row erow0 + w + 16 q of the table (vals, cols) for
 // warp w, the row's length in lane q's `len` (entry offsets: the wrapper
 // keeps n_pad * width below 2^31).  Every (row, step) slot's value and
-// column first, then the gathers; x read with plain (L1) loads.
-template <typename T>
+// column first, Steps 32-entry steps a row at a time, then the gathers; x
+// read with plain (L1) loads, or at L2 (ld.global.cg) where other CTAs
+// write it (kL2).
+template <typename T, int Steps = kSteps, bool kL2 = false>
 __device__ __forceinline__ void gather_rows(const T* vals, const int* cols,
                                             int erow0, int width, int len,
                                             const T* x, T (&acc)[kRowsPerWarp]) {
@@ -249,13 +252,13 @@ __device__ __forceinline__ void gather_rows(const T* vals, const int* cols,
     n = max(n, lq_len > 0 ? (end[q] - start + kWarp - 1) / kWarp : 0);
     acc[q] = T(0);
   }
-  for (int s = 0; s < n; s += kSteps) {
-    int c[kRowsPerWarp][kSteps];
-    T v[kRowsPerWarp][kSteps];
+  for (int s = 0; s < n; s += Steps) {
+    int c[kRowsPerWarp][Steps];
+    T v[kRowsPerWarp][Steps];
 #pragma unroll
     for (int q = 0; q < kRowsPerWarp; ++q) {
 #pragma unroll
-      for (int t = 0; t < kSteps; ++t) {
+      for (int t = 0; t < Steps; ++t) {
         const int e = (beg[q] & ~(kSector - 1)) + (s + t) * kWarp + lane;
         const bool in = e >= beg[q] && e < end[q];
         c[q][t] = in ? cols[e] : -1;
@@ -265,8 +268,12 @@ __device__ __forceinline__ void gather_rows(const T* vals, const int* cols,
 #pragma unroll
     for (int q = 0; q < kRowsPerWarp; ++q) {
 #pragma unroll
-      for (int t = 0; t < kSteps; ++t) {
-        if (c[q][t] >= 0) acc[q] += v[q][t] * x[c[q][t]];
+      for (int t = 0; t < Steps; ++t) {
+        if constexpr (kL2) {
+          if (c[q][t] >= 0) acc[q] += v[q][t] * __ldcg(x + c[q][t]);
+        } else {
+          if (c[q][t] >= 0) acc[q] += v[q][t] * x[c[q][t]];
+        }
       }
     }
   }
@@ -478,6 +485,138 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- the stale-program sweep on a cluster (role "sweep7_stale") -----------
+//
+// One cluster of kGroup CTAs; CTA j owns block j of every group.  A group
+// costs one gather round, one product and two cluster barriers, whatever
+// its number of blocks: CTA j gathers its block's 128 rows against x at
+// L2 (other CTAs write x: ld.global.cg, never L1 or the non-coherent
+// path), computes t and x_blk + K_blk t into registers, then
+//   barrier.cluster (arrive after the gather, wait after the product): no
+//     CTA writes a row of the group before every CTA has read x for it;
+//   writes its rows;
+//   barrier.cluster: the group's rows are at L2 before the next gather.
+// What does not depend on x comes off that path: thread 0 of each CTA
+// streams its block's K tiles on a ring of nk buffers (cp.async.bulk on
+// mbarriers, nk groups ahead) and prefetches its block's rows kStaleAhead
+// groups further on into L2; the next block's lens, b, lag_col and own x
+// rows are loaded into registers during the product.  The rows are
+// gathered from L2, never staged in shared memory.  The launcher takes
+// nk = 2 where two K tiles fit the card's shared memory (f32 and bf16 K),
+// else 1 (f64: one 128 KB tile).
+constexpr int kStaleSteps = 3;  // 32-entry steps of each row in flight
+constexpr int kStaleAhead = 2;  // groups whose own block is prefetched into L2
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <typename T, typename KT>
+__global__ void __cluster_dims__(kGroup, 1, 1) __launch_bounds__(kThreads, 1)
+    stale_cluster_kernel(const ChainArgs<T, KT> a, const int nk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr uint32_t ktile = kBlk * kBlk * sizeof(KT);
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(smem);  // the K ring's
+  T* t_s = reinterpret_cast<T*>(smem + a.L.t);
+  T* part = reinterpret_cast<T*>(smem + a.L.part);
+  const int j = blockIdx.x;  // the grid is one cluster: j is the CTA's rank
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int r = threadIdx.x % kBlk;
+  const int h = threadIdx.x / kBlk;
+  const int ngroups = (a.nblk + kGroup - 1) / kGroup;
+  const int mine = (a.nblk - j + kGroup - 1) / kGroup;  // groups with a block j
+  const T xl = *a.xlag;
+  auto blk_of = [&](int gi) { return a.order[gi * kGroup + j]; };
+  auto kbuf = [&](int s) { return smem + 128 + s * ktile; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nk; ++s) mbar_init(kbar + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < nk && s < mine; ++s) load_k(a, kbuf(s), kbar + s, blk_of(s));
+    for (int d = 0; d <= kStaleAhead && d < mine; ++d) {
+      prefetch_block<kBase>(a, blk_of(d));
+    }
+  }
+  __syncthreads();
+
+  int len = 0;
+  T bq = T(0), lq = T(0), xo = T(0);
+  if (mine > 0) {
+    load_rows(a, blk_of(0), xl, len, bq, lq);
+    if (h == 0) xo = __ldcg(a.x + blk_of(0) * kBlk + r);
+  }
+  for (int gi = 0; gi < ngroups; ++gi) {
+    const bool own = gi < mine;
+    const int row0 = own ? blk_of(gi) * kBlk : 0;
+    if (own) {
+      if (threadIdx.x == 0 && gi + kStaleAhead + 1 < mine) {
+        prefetch_block<kBase>(a, blk_of(gi + kStaleAhead + 1));
+      }
+      // t = b - A x_g - lag_col * x_lag: warp w's rows w + 16 q, all at once
+      T acc[kRowsPerWarp];
+      gather_rows<T, kStaleSteps, true>(a.vals, a.cols, row0, a.width, len, a.x, acc);
+#pragma unroll
+      for (int q = 0; q < kRowsPerWarp; ++q) {
+        const T sum = warp_allsum(acc[q]);
+        const T bqq = __shfl_sync(0xffffffffu, bq, q);
+        const T lqq = __shfl_sync(0xffffffffu, lq, q);
+        if (lane == q) t_s[warp + q * kWarps] = t_in<T, KT>(bqq - sum - lqq);
+      }
+      __syncthreads();  // t complete
+    }
+    cluster_arrive();  // this CTA has read x for the group
+    T xn = T(0);
+    if (own) {
+      T xo_next = T(0);
+      if (gi + 1 < mine) {
+        load_rows(a, blk_of(gi + 1), xl, len, bq, lq);
+        if (h == 0) xo_next = __ldcg(a.x + blk_of(gi + 1) * kBlk + r);
+      }
+      // x_blk + K_blk t: thread (h, r) sums inputs [h, h + 1) * 128 / 4 of
+      // output row r; thread (0, r) adds the 4 partial sums
+      const int s = gi % nk;
+      mbar_wait(kbar + s, (gi / nk) & 1);
+      const KT* kb = reinterpret_cast<const KT*>(kbuf(s));
+      T dx = T(0);
+#pragma unroll 8
+      for (int c = h * (kBlk / kSplit); c < (h + 1) * (kBlk / kSplit); ++c) {
+        dx += k_val(kb[c * kBlk + r]) * t_s[c];
+      }
+      part[threadIdx.x] = dx;
+      __syncthreads();
+      if (h == 0) {
+        T sum = T(0);
+        for (int q = 0; q < kSplit; ++q) sum += part[r + q * kBlk];
+        xn = xo + sum;
+      }
+      xo = xo_next;
+      __syncthreads();  // K buffer s, t and part are free
+      if (threadIdx.x == 0 && gi + nk < mine) load_k(a, kbuf(s), kbar + s, blk_of(gi + nk));
+    }
+    cluster_wait();  // every CTA has read x for the group
+    if (own && h == 0) a.x[row0 + r] = xn;
+    cluster_arrive();  // the group's rows written
+    cluster_wait();
+  }
+}
+
+// The stale cluster's layout: its nk K tiles, then t of its block, then
+// the partial sums
+template <typename T, typename KT>
+ChainLayout stale_cluster_layout(int nk) {
+  ChainLayout L;
+  L.ebuf = L.ecols = 0;  // no ELL tile
+  L.t = 128u + nk * kBlk * kBlk * sizeof(KT);
+  L.part = L.t + kBlk * sizeof(T);
+  L.total = L.part + kThreads * sizeof(T);
+  return L;
+}
+
 // kStale's layout: its K tiles, then t of a group, then the partial sums
 template <typename T, typename KT>
 ChainLayout stale_layout() {
@@ -542,6 +681,49 @@ int chain_entry(const T* vals, const int* cols, const int* lens, int width,
   return launch_chain<T, KT, Mode>(a, stream, info);
 }
 
+// The stale cluster's nk: 2 where two K tiles fit the card's shared
+// memory, else 1.
+template <typename T, typename KT>
+int stale_cluster_entry(const T* vals, const int* cols, const int* lens, int width,
+                        const T* b, const T* lagc, const T* xlag, const KT* kT,
+                        const int* order, int nblk, T* x, void* stream, int* info) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ChainArgs<T, KT> a;
+  a.vals = vals;
+  a.cols = cols;
+  a.lens = lens;
+  a.width = width;
+  a.b = b;
+  a.lagc = lagc;
+  a.xlag = xlag;
+  a.kT = kT;
+  a.order = order;
+  a.nblk = nblk;
+  a.ne = 0;
+  a.x = x;
+  const int nk =
+      stale_cluster_layout<T, KT>(2).total <= static_cast<unsigned>(optin) ? 2 : 1;
+  a.L = stale_cluster_layout<T, KT>(nk);
+  if (a.L.total > static_cast<unsigned>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  if (info != nullptr) {
+    info[0] = nk;
+    info[1] = static_cast<int>(a.L.total);
+  }
+  if (nblk < 1) return static_cast<int>(cudaSuccess);
+  auto kern = stale_cluster_kernel<T, KT>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(a.L.total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<kGroup, kThreads, a.L.total, static_cast<cudaStream_t>(stream)>>>(a, nk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One storage-order sweep over the nblk blocks of order; x in place.
@@ -561,8 +743,9 @@ MMP_CHAIN_ENTRY(mmp_storage_chain_f32, float, float)
 MMP_CHAIN_ENTRY(mmp_storage_chain_f64, double, double)
 MMP_CHAIN_ENTRY(mmp_storage_chain_f32_bf16k, float, __nv_bfloat16)
 
-// One stale-program sweep (kStale) over the nblk blocks of order, groups of
-// kGroup consecutive entries; x in place; info as above (no ELL tile).  The
+// One stale-program sweep by the walk (kStale; role "sweep7_stale_walk")
+// over the nblk blocks of order, groups of kGroup consecutive entries; x in
+// place; info as above (no ELL tile).  The
 // caller passes a storage-order list starting at a multiple of kGroup
 // (gpu_kernels.stale_sweep checks it).
 #define MMP_STALE_ENTRY(NAME, T, KT)                                         \
@@ -578,8 +761,25 @@ MMP_STALE_ENTRY(mmp_storage_chain_stale_f32, float, float)
 MMP_STALE_ENTRY(mmp_storage_chain_stale_f64, double, double)
 MMP_STALE_ENTRY(mmp_storage_chain_stale_f32_bf16k, float, __nv_bfloat16)
 
+// One stale-program sweep on a cluster of kGroup CTAs (role "sweep7_stale";
+// the walk above is the timing role "sweep7_stale_walk"); the list and x as
+// above; info (2 ints, may be null): the K tiles a CTA holds; its shared
+// bytes.  kT 16-byte aligned (the bulk copies).
+#define MMP_STALE_CLUSTER_ENTRY(NAME, T, KT)                                  \
+  extern "C" int NAME(const T* vals, const int* cols, const int* lens,       \
+                      int width, const T* b, const T* lagc, const T* xlag,   \
+                      const KT* kT, const int* order, int nblk, T* x,        \
+                      void* stream, int* info) {                             \
+    return stale_cluster_entry<T, KT>(vals, cols, lens, width, b, lagc, xlag, \
+                                      kT, order, nblk, x, stream, info);     \
+  }
+
+MMP_STALE_CLUSTER_ENTRY(mmp_stale_cluster_f32, float, float)
+MMP_STALE_CLUSTER_ENTRY(mmp_stale_cluster_f64, double, double)
+MMP_STALE_CLUSTER_ENTRY(mmp_stale_cluster_f32_bf16k, float, __nv_bfloat16)
+
 // The sweep probe's modes (f32, one CTA, storage order; mode a ChainMode):
-// kBase is the production f32 instance above, kStale the stale sweep's f32
+// kBase is the production f32 instance above, kStale the stale walk's f32
 // instance.  Returns
 // cudaErrorInvalidValue for an unknown mode.
 extern "C" int mmp_chain_probe_f32(const float* vals, const int* cols,

@@ -32,6 +32,7 @@ each step reads a few scalars (residuals, iteration counts) on the host.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -188,8 +189,12 @@ def timestep_gpu(t: GpuFracStep, state: FracStepState, stats: dict | None = None
     Returns (state, fs_residual as a 0-dim device tensor).  ``stats``, when
     given, receives the PPE solve's outer passes (``ppe_outer``), per pass
     the inner BiCGStab iterations, inner and outer relative residuals
-    (``ppe_passes``), the final relative residual (``ppe_residual``) and the
-    pre-blend solution (``p_solve``, ``pl_solve``).
+    (``ppe_passes``), the final relative residual (``ppe_residual``),
+    whether it is below ``config.ppe_tol`` (``ppe_converged``) and the
+    pre-blend solution (``p_solve``, ``pl_solve``).  A PPE solve that stops
+    above the tolerance (the fused stopping rule's stall or pass cap: the
+    step goes on with it, as the reference's does) raises a
+    ``RuntimeWarning``.
     """
     c = t.config
     fine_i = len(t.hd.levels) - 1
@@ -219,9 +224,14 @@ def timestep_gpu(t: GpuFracStep, state: FracStepState, stats: dict | None = None
     p, pl, outer, res = solve_mixed(
         t.op64, t.hd, p_old, state.mg.x_lag[fine_i], b, b.new_zeros(()),
         tol=c.ppe_tol, matvec64=_mv64(t), matvec32=_mv32(t), passes=passes)
+    converged = res < c.ppe_tol
+    if not converged:
+        warnings.warn(f"PPE solve stopped at relative residual {res:.3e}, above "
+                      f"ppe_tol {c.ppe_tol:.0e}, after {outer} outer passes",
+                      RuntimeWarning, stacklevel=2)
     if stats is not None:
         stats.update(ppe_outer=outer, ppe_passes=passes, ppe_residual=res,
-                     p_solve=p, pl_solve=pl)
+                     ppe_converged=converged, p_solve=p, pl_solve=pl)
     p = c.p_relax * p + (1.0 - c.p_relax) * p_old
     mg = state.mg.replace_level(fine_i, x=p, x_lag=pl, b=b)
 

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-Eleven kernels (seven sources in ``meshlessmultigridpoisson_torch/csrc/``)
+Twelve kernels (seven sources in ``meshlessmultigridpoisson_torch/csrc/``)
 replace fourteen Pallas TPU kernels of the reference package and eight of
 its timing probes:
 
@@ -24,11 +24,15 @@ CUDA kernel (role counter)         TPU kernel it replaces
                                    CTA, K and ELL rows fetched ahead
 ``block_oneshot_sweep``            the parent design of ``sweep6``, the
 (``sweep6_chain``)                 single-CTA chain (timing only)
-``storage_chain``                  ops/kernels6.py:812 ``sor_sweep_tpu7(
-(``sweep7_stale``)                 stale_program=True)``: storage-order
+``storage_chain``'s cluster        ops/kernels6.py:812 ``sor_sweep_tpu7(
+kernel (``sweep7_stale``)          stale_program=True)``: storage-order
                                    block GS whose groups of 8 blocks read
                                    x as the group began (``stale_sweep``;
-                                   ``probes.rho``; no solve runs it)
+                                   ``probes.rho``; no solve runs it); 8
+                                   CTAs, CTA j a group's block j
+``storage_chain`` mode kStale      the parent design of ``sweep7_stale``:
+(``sweep7_stale_walk``)            one CTA walks a group's blocks in turn
+                                   (timing only)
 ``coarse_smooth`` (sweep7)         ops/kernels6.py:812 ``sor_sweep_tpu7``:
                                    storage-order block GS (coarsest level);
                                    a smoother call in one CTA, the level in
@@ -189,7 +193,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches per TPU-kernel role; reset with reset_counts()
 COUNTS = {"spmv6": 0, "spmv8": 0, "sweep6": 0, "sweep7": 0, "sweep8": 0,
           "sweep8_percolor": 0, "spmv_rowwarp": 0, "sweep6_chain": 0,
-          "sweep7_stale": 0,
+          "sweep7_stale": 0, "sweep7_stale_walk": 0,
           "bound2": 0, "push2": 0, "ppe2": 0, "ppe2_scatter": 0, "stream14": 0,
           "sweep2": 0,
           "sweep2_tilewalk": 0,
@@ -297,7 +301,8 @@ def _load():
             for name in ("mmp_storage_chain_f32", "mmp_storage_chain_f64",
                          "mmp_storage_chain_f32_bf16k", "mmp_storage_chain_stale_f32",
                          "mmp_storage_chain_stale_f64",
-                         "mmp_storage_chain_stale_f32_bf16k"):
+                         "mmp_storage_chain_stale_f32_bf16k", "mmp_stale_cluster_f32",
+                         "mmp_stale_cluster_f64", "mmp_stale_cluster_f32_bf16k"):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = [p, p, p, i, p, p, p, p, p, i, p, p, ctypes.POINTER(i)]
@@ -892,7 +897,8 @@ def block_oneshot_sweep_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
 # roles of csrc/storage_chain.cu: one CTA walks a storage-order phase
 CHAIN_ROLES = ("sweep5", "sweep6")
 # role -> (1 if the ELL rows were staged in shared memory else 0, shared
-# bytes) of its last launch: the kernel stages them where they fit
+# bytes) of its last launch: the kernel stages them where they fit; for
+# "sweep7_stale", (K tiles a CTA, shared bytes a CTA)
 CHAIN_INFO: dict[str, tuple] = {}
 
 
@@ -929,24 +935,31 @@ def storage_chain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     return x
 
 
-# the stale-program sweep (csrc/storage_chain.cu, mode kStale): the
-# reference's sor_sweep_tpu7(stale_program=True)
+# the stale-program sweep (csrc/storage_chain.cu): the reference's
+# sor_sweep_tpu7(stale_program=True); "sweep7_stale" its cluster kernel,
+# "sweep7_stale_walk" the first design, mode kStale of the one-CTA chain
+# (timing only)
 STALE_ROLE = "sweep7_stale"
+STALE_WALK = "sweep7_stale_walk"
+STALE_ROLES = (STALE_ROLE, STALE_WALK)
 STALE_GROUP = 8  # blocks a group, sharing x as the group began (its MB)
 
 
-def stale_sweep_of(sw: BlockSweep) -> BlockSweep:
-    """``sw``'s tables as a role "sweep7_stale" sweep.  Refuses (one host
-    read of the order) all but one storage-order phase of consecutive block
-    ids starting at a multiple of ``STALE_GROUP``: the reference's groups
-    follow block ids (its segments are MB-aligned), not list positions."""
+def stale_sweep_of(sw: BlockSweep, role: str = STALE_ROLE) -> BlockSweep:
+    """``sw``'s tables as a stale-program sweep of ``role`` (``STALE_ROLES``).
+    Refuses (one host read of the order) all but one storage-order phase of
+    consecutive block ids starting at a multiple of ``STALE_GROUP``: the
+    reference's groups follow block ids (its segments are MB-aligned), not
+    list positions."""
+    if role not in STALE_ROLES:
+        raise ValueError(f"a stale-program sweep has a role of {STALE_ROLES}, not {role!r}")
     ids = sw.order.cpu().long()
     n = ids.shape[0]
     if (not sw.serial or sw.phase_ptr != (0, n) or n == 0 or int(ids[0]) % STALE_GROUP
             or not torch.equal(ids, ids[0] + torch.arange(n))):
         raise ValueError("the stale sweep walks one storage-order phase of consecutive "
                          f"blocks from a multiple of {STALE_GROUP}")
-    return dataclasses.replace(sw, role=STALE_ROLE)
+    return dataclasses.replace(sw, role=role)
 
 
 def _stale_groups(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
@@ -961,19 +974,21 @@ def _stale_groups(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
 
 def stale_sweep_plain(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     """Plain version of ``stale_sweep``: x in place, returned."""
-    if sw.role != STALE_ROLE:
-        raise ValueError(f"stale_sweep runs role {STALE_ROLE!r} (stale_sweep_of), "
+    if sw.role not in STALE_ROLES:
+        raise ValueError(f"stale_sweep runs roles {STALE_ROLES} (stale_sweep_of), "
                          f"not {sw.role!r}")
     return _stale_groups(sw, x, x_lag, b)
 
 
 def stale_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
-    """One stale-program sweep (role "sweep7_stale", from ``stale_sweep_of``)
-    on ``x``, in place, one ``storage_chain`` launch of mode kStale; returns
-    ``x``.  f32, f64, or bf16 K with f32 vectors.  CPU tensors:
-    ``stale_sweep_plain``."""
-    if sw.role != STALE_ROLE or not sw.serial or sw.phase_ptr != (0, sw.order.shape[0]):
-        raise ValueError(f"stale_sweep runs one phase of role {STALE_ROLE!r} "
+    """One stale-program sweep (from ``stale_sweep_of``) on ``x``, in place,
+    one launch; returns ``x``.  Role "sweep7_stale": the cluster kernel (8
+    CTAs, CTA j a group's block j); "sweep7_stale_walk": ``storage_chain``'s
+    mode kStale on one CTA.  f32, f64, or bf16 K with f32 vectors.  CPU
+    tensors: ``stale_sweep_plain``."""
+    if (sw.role not in STALE_ROLES or not sw.serial
+            or sw.phase_ptr != (0, sw.order.shape[0])):
+        raise ValueError(f"stale_sweep runs one phase of roles {STALE_ROLES} "
                          f"(stale_sweep_of), not {sw.role!r}")
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         return stale_sweep_plain(sw, x, x_lag, b)
@@ -984,7 +999,8 @@ def stale_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
         raise ValueError("stale_sweep: kT is not 16-byte aligned")
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
     _check("x_lag", xl, dev, dt, ())
-    fn = getattr(_load(), f"mmp_storage_chain_stale_{_SWEEP_SUFFIX[(dt, kdt)]}")
+    entry = "mmp_stale_cluster" if sw.role == STALE_ROLE else "mmp_storage_chain_stale"
+    fn = getattr(_load(), f"{entry}_{_SWEEP_SUFFIX[(dt, kdt)]}")
     ids = sw.order
     info = (ctypes.c_int * 2)()
     rc = _call(sw.role, ids.shape[0] * LANES, sw.A.nrows_pad, fn, sw.A.vals.data_ptr(),
@@ -1008,8 +1024,8 @@ def block_oneshot_sweep(sw: BlockSweep, x, x_lag, b) -> torch.Tensor:
     of "sweep8") launch ``block_oneshot_sweep.cu`` once per phase."""
     if sw.role in PROBE_MODES:
         raise ValueError(f"role {sw.role!r} is a timing probe: sweep_probe runs it")
-    if sw.role == STALE_ROLE:
-        raise ValueError(f"role {STALE_ROLE!r} computes another sweep: stale_sweep runs it")
+    if sw.role in STALE_ROLES:
+        raise ValueError(f"role {sw.role!r} computes another sweep: stale_sweep runs it")
     if x.device.type == "cpu" and sw.kT.device.type == "cpu":
         return block_oneshot_sweep_plain(sw, x, x_lag, b)
     if sw.role in FUSED_SWEEP_ROLES:

@@ -96,6 +96,8 @@ def run_task(task: dict, shier, mesh, b_log) -> dict:
         cyc = sh.make_sharded_vcycle(shier, mesh, dtype)
         if task.get("plain_checks"):
             out["plain_checks"] = gathered_plain_checks(cyc.shards.levels, mesh)
+        for _ in range(task.get("warmup", 0)):  # first launches, pinned buffers
+            cyc(x0, zero, bf, zero)
         t0 = start()
         xf, xl, hist = x0, zero, []
         for _ in range(task["cycles"]):
@@ -113,6 +115,25 @@ def run_task(task: dict, shier, mesh, b_log) -> dict:
         t0 = start()
         xf, xl, it, resid = solve(x0, zero, bf, zero, task["tol"])
         out.update(iters=it, resid=resid, kinds=[lv.kind for lv in solve.shards.levels])
+    elif kind == "comm":
+        # the fine level's frontier exchange and a scalar all-reduce, each
+        # ``reps`` times back to back: seconds a call, bytes and messages
+        lv = sh.device_shards(shier, mesh, dtype).levels[0]
+        x_ext, s = torch.zeros(lv.ext, dtype=dtype, device=dev), zero.clone()
+        n = task["reps"]
+        for name, op in (("exchange", lambda: sh._frontier_exchange(lv, mesh, x_ext)),
+                         ("all_reduce", lambda: mesh.all_reduce(s))):
+            op()
+            mesh.reset_stats()
+            _sync(dev)
+            t1 = time.perf_counter()
+            for _ in range(n):
+                op()
+            _sync(dev)
+            out[name] = dict(seconds=(time.perf_counter() - t1) / n,
+                             **{k: v / n for k, v in mesh.stats.items() if v})
+        t0 = start()
+        xf, xl = x0, zero
     else:
         raise ValueError(f"unknown task kind {kind!r}")
     _sync(dev)
@@ -280,8 +301,9 @@ def spawn(n: int, problems, tasks, *, device: str = "cuda", workdir: str | None 
     ``problems``: (hierarchy, b_log) pairs, the host ``Hierarchy`` (or its
     ``interop.hierarchy_to_numpy`` tree) and the logical fine right-hand
     side.  A task: a dict with ``name``, ``kind`` ("vcycle" with
-    ``cycles``; "solver" with ``max_cycles`` and ``tol``; "bicgstab" with
-    ``max_iters`` and ``tol``), and optionally ``problem`` (index, 0),
+    ``cycles`` and optionally ``warmup`` untimed cycles first; "solver" with ``max_cycles`` and ``tol``; "bicgstab" with
+    ``max_iters`` and ``tol``; "comm" with ``reps``: the fine level's
+    frontier exchange and a scalar all-reduce timed), and optionally ``problem`` (index, 0),
     ``shard_levels`` (1), ``dtype`` ("float64"), ``check_kernels`` (rank 0
     checks every shard's kernels after it), ``plain_checks`` (every rank
     holds its kernels on the task's levels against their plain versions

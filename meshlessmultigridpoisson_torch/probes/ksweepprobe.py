@@ -15,8 +15,9 @@ tile, barrier) is split by compile-time variants of that kernel
   prefetched), t = b - lag_col * x_lag;
 * ``probe_nodot``: no K product (no K staged or prefetched), x_blk += t
   (on A / 128, so that the chain stays finite);
-* ``probe_hoist``: the stale-program sweep's f32 instance itself (role
-  ``sweep7_stale``, the reference's ``sor_sweep_tpu7(stale_program=True)``):
+* ``probe_hoist``: the stale-program sweep's first design, its f32
+  instance itself (role ``sweep7_stale_walk``, a one-CTA walk computing
+  the reference's ``sor_sweep_tpu7(stale_program=True)``):
   the blocks of each group of 8 consecutive blocks all gather x as it
   stood when the group began (their rows read from device memory,
   prefetched into L2), then the group's 8 products run on two K buffers,
@@ -34,7 +35,7 @@ seed 2, no Lagrange column, x_lag 0.  Each mode is held against its plain
 version (``gpu_kernels.sweep_probe_plain``) on the same inputs (``TOL``,
 relative to max |plain output|), ``probe_base`` also bit for bit against a
 ``sweep6`` sweep (``gpu_kernels.storage_chain``) and ``probe_hoist``
-against a ``sweep7_stale`` one (``gpu_kernels.stale_sweep``), then timed:
+against a ``sweep7_stale_walk`` one (``gpu_kernels.stale_sweep``), then timed:
 ``iters`` sweeps chained in place from x, between CUDA events
 (``utils.profiling.chain_time``, each run from a fresh copy of x), the
 median of three runs.  Each line gives ms per sweep, us per block, the
@@ -64,7 +65,7 @@ ITERS = 5
 MODES = ("probe_base", "probe_hoist", "probe_nodot", "probe_nogather")
 # the modes that launch a production role's kernel instance
 INSTANCES = {"probe_base": "the sweep6 f32 instance",
-             "probe_hoist": "the sweep7_stale f32 instance"}
+             "probe_hoist": "the sweep7_stale_walk f32 instance"}
 # kernel vs plain, relative to max |plain output|: the 128-term K product
 # and the ~70-term row sums in another order (f32)
 TOL = 1e-4
@@ -135,7 +136,8 @@ def run(iters: int = ITERS, seed: int = 0, op: dict | None = None) -> dict:
         if role in INSTANCES:  # the production role's instance, bit for bit
             prod_sw = dataclasses.replace(sw, role="sweep6")
             prod = (gk.storage_chain(prod_sw, x0.clone(), zl, b) if role == "probe_base"
-                    else gk.stale_sweep(gk.stale_sweep_of(prod_sw), x0.clone(), zl, b))
+                    else gk.stale_sweep(gk.stale_sweep_of(prod_sw, gk.STALE_WALK),
+                                        x0.clone(), zl, b))
             if not torch.equal(prod, out):
                 raise AssertionError(f"{role} is not {INSTANCES[role]}")
             del prod

@@ -191,23 +191,25 @@ STALE_CASES = [(torch.float32, None, 1e-4), (torch.float64, None, 1e-11),
 
 @pytest.mark.parametrize("dtype,kdt,tol", STALE_CASES, ids=["f32", "f64", "bf16k"])
 @pytest.mark.parametrize("start", [0, 8])
-def test_stale_sweep_counts_and_matches_plain(et, dtype, kdt, tol, start):
-    """The stale-program mode of ``storage_chain`` (role ``sweep7_stale``)
-    in one launch against its plain version: the fixture's 11 blocks from
-    block 0 (a last group of 3) and from block 8 (one partial group); rows
-    outside the order untouched; bf16 K against the bf16 plain version
-    within 1e-2 of max |dx|."""
+@pytest.mark.parametrize("role", ["sweep7_stale", "sweep7_stale_walk"])
+def test_stale_sweep_counts_and_matches_plain(et, dtype, kdt, tol, start, role):
+    """The stale-program sweep in one launch against its plain version: its
+    cluster kernel (role ``sweep7_stale``) and the walk (``storage_chain``'s
+    mode kStale, the timing role ``sweep7_stale_walk``); the fixture's 11
+    blocks from block 0 (a last group of 3) and from block 8 (one partial
+    group); rows outside the order untouched; bf16 K against the bf16 plain
+    version within 1e-2 of max |dx|."""
     sw = _sweep(et, dtype, True, "sweep6", k_dtype=kdt)
     nb = sw.order.shape[0]
     sw = gk.stale_sweep_of(dataclasses.replace(sw, order=sw.order[start:].contiguous(),
-                                               phase_ptr=(0, nb - start)))
+                                               phase_ptr=(0, nb - start)), role)
     x, b = _rand(et.nrows_pad, dtype, 21), _rand(et.nrows_pad, dtype, 22)
     xl = torch.tensor(0.3, dtype=dtype, device="cuda")
     before = dict(gk.COUNTS)
     out = gk.stale_sweep(sw, x.clone(), xl, b)
     torch.cuda.synchronize()
     made = {k: gk.COUNTS[k] - before[k] for k in before if gk.COUNTS[k] != before[k]}
-    assert made == {gk.STALE_ROLE: 1}
+    assert made == {role: 1}
     ref = gk.stale_sweep_plain(sw, x.clone(), xl, b)
     scale = (ref - x).abs().max() if kdt is not None else ref.abs().max()
     assert float((out - ref).abs().max()) <= tol * float(scale)

@@ -331,6 +331,7 @@ def test_cli_ns_cpu_matches_reference_record(tmp_path):
     np.testing.assert_allclose(rec.residual_history, rj["residual_history"], rtol=2e-2)
     assert rec.l1_error == pytest.approx(rj["l1_error"], rel=1e-3)
     assert all(r < 1e-10 for r in rec.extra["ppe_residual"])
+    assert rec.extra["ppe_over_tol"] == []
     assert len(rec.extra["ppe_outer"]) == len(rec.extra["step_time_s"]) == steps
     assert all(v == 0 for v in rec.extra["launches"].values())  # CPU: no kernel
 
@@ -344,11 +345,32 @@ def test_cli_ns_cpu_matches_reference_record(tmp_path):
                                           last["x_lag"] + 1e-3) > 10 * recheck
 
 
-def test_cli_ns_refuses_reference_ppe():
+def test_cli_ns_counts_ppe_solves_above_tolerance():
+    """A PPE solve that stops above ``--ppe-tol`` (here a tolerance no
+    solve reaches: every step stops at the stall rule or the pass cap) is
+    not passed over: each raises a ``RuntimeWarning`` and the record lists
+    its step in ``extra.ppe_over_tol``, which ``chip_smoke.py``'s NS check
+    requires to be empty."""
     from meshlessmultigridpoisson_torch.apps import cli
 
-    with pytest.raises(NotImplementedError, match="reference-ppe"):
-        cli.run_ns(["ns", "--device", "cpu", "--reference-ppe"])
+    with pytest.warns(RuntimeWarning, match="above ppe_tol") as caught:
+        rec, _, _ = cli.run_ns(["ns", "--device", "cpu", "--sizes", *map(str, SIZES),
+                                "--deg", str(DEG), "--steps", "2", "--ppe-tol", "1e-30"])
+    assert rec.extra["ppe_over_tol"] == [0, 1]
+    assert sum("above ppe_tol" in str(w.message) for w in caught) == 2
+    assert all(1e-30 <= r for r in rec.extra["ppe_residual"])
+
+
+def test_cli_ns_refuses_reference_ppe(monkeypatch):
+    """The device path has the compatible PPE only: ``--reference-ppe``
+    with ``--device cuda`` is refused (with or without a card; the host
+    path, ``--device cpu``, runs it)."""
+    from meshlessmultigridpoisson_torch.apps import cli
+
+    for card in (False, True):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda card=card: card)
+        with pytest.raises(NotImplementedError, match="reference-ppe"):
+            cli.run_ns(["ns", "--device", "cuda", "--reference-ppe"])
 
 
 def test_cli_ns_cuda_without_card_refuses(monkeypatch):

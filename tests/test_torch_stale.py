@@ -1,6 +1,7 @@
-"""The stale-program sweep (``gpu_kernels.stale_sweep``, role
-``sweep7_stale``: ``csrc/storage_chain.cu``'s mode kStale) held against the
-reference package on the CPU.
+"""The stale-program sweep (``gpu_kernels.stale_sweep``: role
+``sweep7_stale``, ``csrc/storage_chain.cu``'s cluster kernel, and its first
+design, the timing role ``sweep7_stale_walk``, the mode kStale) held
+against the reference package on the CPU.
 
 * f32: the reference's ``kernels6.sor_sweep_tpu7(..., stale_program=True)``
   in TPU interpret mode against the port's plain version, on the pattern
@@ -10,9 +11,9 @@ reference package on the CPU.
 * f64: the plain version against ``scripts/rho_stale.py``'s numpy
   ``_sweep_oneshot`` (groups of 1,024 rows), to 1e-12 of max |x|;
 * the wrapper refuses an order that is not storage order from a multiple
-  of 8, the plain version differs from the exact sweep, the block-sweep
-  entry refuses the role, and the sweep probe's ``probe_hoist`` computes
-  the same function.
+  of 8 and a role that is not a stale one, the plain version differs from
+  the exact sweep, the block-sweep entry refuses both roles, and the sweep
+  probe's ``probe_hoist`` computes the same function.
 """
 
 import dataclasses
@@ -140,6 +141,10 @@ def test_the_wrapper_refuses_other_orders_and_roles(pattern):
         gk.stale_sweep(sw, x.clone(), 0.0, b)
     with pytest.raises(ValueError, match="stale_sweep runs it"):
         gk.block_oneshot_sweep(gk.stale_sweep_of(sw), x.clone(), 0.0, b)
+    with pytest.raises(ValueError, match="stale_sweep runs it"):
+        gk.block_oneshot_sweep(gk.stale_sweep_of(sw, gk.STALE_WALK), x.clone(), 0.0, b)
+    with pytest.raises(ValueError, match="role"):
+        gk.stale_sweep_of(sw, "sweep6")
 
 
 def test_probe_hoist_is_the_stale_sweep(pattern):
