@@ -219,12 +219,14 @@ def _sync(dev) -> None:
 
 def _device_profile(solve, dev) -> dict:
     """Run ``solve()`` under torch.profiler; per-kernel device time (top 12
-    by time), the device busy share of that run's wall time, and per launch
+    by time), the device busy share of that run's wall time, per launch
     shape of the solve's kernels ("role rows x cols": the rows a launch
     writes, the length of the vector it reads; ``gpu_kernels.SHAPES``) the
-    launches and the device time per launch.  The shapes' profiler ranges
-    add host time: the busy share is the plain run's only where no shape
-    was counted."""
+    launches and the device time per launch, and per V-cycle level range
+    ("vcycle L{i} down|coarse|up", ``utils.trace.level_range``) the device
+    time of the kernels inside it a V-cycle.  The ranges add host time: the
+    busy share is the plain run's only where no range was entered; the
+    level ranges' end marks are left out of every table."""
     import time
 
     import torch
@@ -232,6 +234,7 @@ def _device_profile(solve, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from meshlessmultigridpoisson_torch.ops import gpu_kernels
+    from meshlessmultigridpoisson_torch.utils import trace
 
     if dev.type != "cuda":
         return {"device_busy_share": "not measured (no CUDA device)"}
@@ -246,23 +249,54 @@ def _device_profile(solve, dev) -> dict:
     finally:
         gpu_kernels.SHAPES = None
     by_name: dict[str, list] = {}
+    spans, kernels = [], []
     for e in prof.events():
-        # a shape's profiler range shows on the device too: not a kernel
-        if e.device_type == DeviceType.CUDA and e.name not in shapes:
-            acc = by_name.setdefault(e.name, [0, 0.0])
-            acc[0] += 1
-            acc[1] += e.time_range.elapsed_us() / 1e3
+        if e.device_type != DeviceType.CUDA:
+            continue
+        row = (e.time_range.start, e.time_range.end, e.name)
+        # a range shows on the device too, from its first kernel's start to
+        # its last one's end: not a kernel
+        if e.name in shapes:
+            spans.append(row)
+            continue
+        if trace.MARK_KERNEL in e.name:  # a level range's end mark
+            continue
+        kernels.append(row)
+        acc = by_name.setdefault(e.name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     dev_us = {e.key: e.device_time_total for e in prof.key_averages() if e.key in shapes}
     launches = [{"shape": k, "launches": c, "device_ms": dev_us.get(k, 0.0) / 1e3,
                  "device_ms_per_launch": dev_us.get(k, 0.0) / 1e3 / c}
-                for k, c in sorted(shapes.items())]
+                for k, c in sorted(shapes.items()) if not k.startswith("vcycle ")]
+    vcycles = shapes.get("vcycle L0 coarse", 0)
+    levels = [{"range": k, "device_ms_per_vcycle": ms / vcycles}
+              for k, ms in sorted(_kernels_inside(spans, kernels).items())
+              if k.startswith("vcycle ")] if vcycles else []
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "kernels": [{"name": n[:96], "calls": c, "ms": ms}
                         for n, (c, ms) in top],
-            "launch_shapes": launches}
+            "launch_shapes": launches, "vcycles": vcycles, "vcycle_levels": levels}
+
+
+def _kernels_inside(spans, kernels) -> dict:
+    """{range name: device ms of the kernels inside its occurrences}, each
+    (start_us, end_us, name) on one stream."""
+    import bisect
+
+    kernels = sorted(kernels)
+    starts = [k[0] for k in kernels]
+    out: dict[str, float] = {}
+    for a, b, name in spans:
+        j = bisect.bisect_left(starts, a)
+        while j < len(kernels) and kernels[j][0] <= b:
+            if kernels[j][1] <= b:
+                out[name] = out.get(name, 0.0) + (kernels[j][1] - kernels[j][0]) / 1e3
+            j += 1
+    return out
 
 
 def _setup_build_config(args) -> dict:
@@ -385,12 +419,12 @@ def run_solve(argv=None, problem=None, use_v6=None):
     if dev.type == "cuda":  # the record's peak is this run's
         torch.cuda.reset_peak_memory_stats(dev)
 
-    cache = None
+    cache, built = None, problem is None
     with Timer() as t_setup:
-        with Timer() as t_host:
-            if problem is None:
-                problem, cache = _build_problem(args, dev)
-            prob = problem
+        if problem is None:
+            problem, cache = _build_problem(args, dev)
+            built = cache is None or cache["built"]
+        prob = problem
         if not host:
             ghier = gpu_hierarchy(prob.hierarchy, dev, sweep_order=args.sweep_order,
                                   k_dtype=torch.bfloat16 if args.fast_k else None,
@@ -417,10 +451,6 @@ def run_solve(argv=None, problem=None, use_v6=None):
                     block_rows=args.block_rows),
     )
     rec.extra["setup_time_s"] = t_setup.elapsed
-    # the host problem's build (0 when ``problem`` was passed; a cache's
-    # load), the rest is the repack to the device and the right-hand side
-    rec.extra["setup_stages_s"] = {"host_problem": t_host.elapsed,
-                                   "repack": t_setup.elapsed - t_host.elapsed}
     if cache is not None:
         rec.extra["setup_cache"] = cache
     rec.extra["device"] = device_name
@@ -428,6 +458,7 @@ def run_solve(argv=None, problem=None, use_v6=None):
         x, xl = _solve_host(args, prob, rec)
     else:
         x, xl, rerun = _solve_device(args, rec, dev, ghier, op64, b, bl)
+    rec.extra["setup_stages_s"] = _setup_stages(built, cache, repacked=not host)
     rec.l1_error = l1_error(prob, x)
     if args.write_solution:
         _write_solution(args.write_solution, prob, x)
@@ -448,15 +479,35 @@ def run_solve(argv=None, problem=None, use_v6=None):
     return rec, prob, x, xl
 
 
+def _setup_stages(built: bool, cache, repacked: bool) -> dict:
+    """The set-up's stages from the program's spans (``utils.trace``): the
+    hierarchy's build, where this run built one, and a cache's save and
+    load (``host_problem``), and the repack (``repack``), each stage by
+    name beside them."""
+    from meshlessmultigridpoisson_torch.utils import trace
+
+    stages = dict.fromkeys(trace.SETUP_STAGES + trace.REPACK_STAGES, 0.0)
+    if built:
+        stages.update((k, trace.SPANS[k]) for k in trace.SETUP_STAGES)
+    if repacked:
+        stages.update((k, trace.SPANS[k]) for k in trace.REPACK_STAGES)
+    cache_s = sum((cache or {}).get(k, 0.0) for k in ("save_s", "load_s"))
+    return {"host_problem": sum(stages[k] for k in trace.SETUP_STAGES) + cache_s,
+            "repack": sum(stages[k] for k in trace.REPACK_STAGES), **stages}
+
+
 def _solve_device(args, rec, dev, ghier, op64, b, bl):
     """The mixed-precision defect correction on ``dev``: one untimed outer
     pass, then the timed solve; fills the record, returns (x, x_lag, a
     function that runs the timed solve again)."""
+    import dataclasses
+
     import torch
 
     from meshlessmultigridpoisson_torch.mg import mixed
     from meshlessmultigridpoisson_torch.mg.gpu_backend import col_formats
     from meshlessmultigridpoisson_torch.ops import gpu_kernels
+    from meshlessmultigridpoisson_torch.utils import trace
 
     rec.extra["level_kernels"] = [lv.kernel_kind for lv in ghier.levels]
     rec.extra["spmv_col_formats"] = col_formats(ghier, op64)
@@ -482,6 +533,7 @@ def _solve_device(args, rec, dev, ghier, op64, b, bl):
     rec.wall_time_s = t.elapsed
     rec.cycles = int(it)
     rec.final_residual = float(res)
+    rec.extra["trace"] = dataclasses.asdict(trace.SOLVES[-1])
     rec.extra["launches"] = {k: v - before[k] for k, v in gpu_kernels.COUNTS.items()}
     rec.extra["first_run_s"] = t_first.elapsed
     if dev.type == "cuda":  # the tensors of setup and both solves

@@ -55,6 +55,7 @@ smoother adds no host sync.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 
 import numpy as np
@@ -88,6 +89,7 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     v6_supported,
 )
 from meshlessmultigridpoisson_torch.stencil.operators import CompactRows, LevelOperator
+from meshlessmultigridpoisson_torch.utils import trace
 
 SWEEP_ORDERS = ("colored", "exact")
 
@@ -188,7 +190,9 @@ def gpu_level_from_operator(
     where the rule allows).  ``k_dtype``
     stores the sweep's K in another dtype (``torch.bfloat16`` with f32
     vectors: ``--fast-k``).  ``use_v6``: see ``runs_v2``; a v2 level holds
-    no K.  Raises on a layout the kernels cannot take."""
+    no K.  Raises on a layout the kernels cannot take.  A matvec-only
+    level's repack is the span ``repack.outer64`` (``utils.trace``)."""
+    t0 = time.perf_counter()
     if sweep_order not in SWEEP_ORDERS:
         raise ValueError(f"sweep_order {sweep_order!r} not in {SWEEP_ORDERS}")
     k_dtype = dtype if k_dtype is None else k_dtype
@@ -244,7 +248,7 @@ def gpu_level_from_operator(
             role=role,
             patches=block_patch_tables(gcols, nb, device) if colored else None,
         )
-    return GpuLevel(
+    level = GpuLevel(
         A=A,
         sweep=sw,
         bound=device_compact(op.bound, dtype, device, "bound2"),
@@ -263,6 +267,9 @@ def gpu_level_from_operator(
         iters=op.iters,
         kernel_kind=kind,
     )
+    if not sweep:
+        trace.add("repack.outer64", time.perf_counter() - t0)
+    return level
 
 
 def col_formats(hier: Hierarchy, op64: GpuLevel | None = None) -> dict:
@@ -282,17 +289,23 @@ def gpu_hierarchy(hier: Hierarchy, device, dtype=torch.float32,
     """Convert a host hierarchy to the GPU backend (transfers included).
     Transfers keep ``spmv6`` whatever ``use_v6`` says, and take ``spmv2``
     where the v6 layout refuses them (tpu_backend.tpu_hierarchy); no sweep
-    reads them, so they take u16 columns where the rule allows."""
-    levels = tuple(gpu_level_from_operator(op, device, dtype, sweep_order=sweep_order,
-                                           k_dtype=k_dtype, use_v6=use_v6)
-                   for op in hier.levels)
+    reads them, so they take u16 columns where the rule allows.  A new
+    repack: its stages (``utils.trace.REPACK_STAGES``) replace the last
+    one's, ``repack.levels`` and ``repack.transfers`` timed here."""
+    trace.begin(trace.REPACK_STAGES)
+    with trace.span("repack.levels"):
+        levels = tuple(gpu_level_from_operator(op, device, dtype, sweep_order=sweep_order,
+                                               k_dtype=k_dtype, use_v6=use_v6)
+                       for op in hier.levels)
 
     def transfer(ell):
         return device_ell(ell, dtype, device, "spmv6" if v6_supported(ell) else "spmv2",
                           u16=True)
 
-    return Hierarchy(levels=levels, restrict=tuple(map(transfer, hier.restrict)),
-                     prolong=tuple(map(transfer, hier.prolong)))
+    with trace.span("repack.transfers"):
+        restrict = tuple(map(transfer, hier.restrict))
+        prolong = tuple(map(transfer, hier.prolong))
+    return Hierarchy(levels=levels, restrict=restrict, prolong=prolong)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ bordered fine-level system in defect form,
   border:  lag_row . x + x_lag
 with the preconditioner = one V-cycle from a zero guess on homogeneous
 boundary data (linear by construction).  The ``lax.while_loop`` becomes a
-Python loop that reads the residual on the host once per iteration.
+Python loop that reads the residual on the host once per iteration (each
+read counted in the open solve's record, ``utils.trace``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from meshlessmultigridpoisson_torch.mg.vcycle import Hierarchy, MGState, v_cycle
 from meshlessmultigridpoisson_torch.ops import smoothers as sm
+from meshlessmultigridpoisson_torch.utils import trace
 
 
 def homogeneous_hierarchy(hier: Hierarchy) -> Hierarchy:
@@ -108,7 +110,7 @@ def solve_bicgstab(
     rhat, rhatl = r, rl
     p, pl = r, rl
     rho = dot(rhat, rhatl, r, rl)
-    resid = float(l1(r, rl) / bnorm)
+    resid = trace.host_read(l1(r, rl) / bnorm)
     it = 0
     tiny = 1e-300
     while resid >= tol and it < max_iters:
@@ -133,13 +135,13 @@ def solve_bicgstab(
         it += 1
         # breakdown (rho/omega underflow, common from a near-converged
         # guess): keep the previous iterate, report the -1 sentinel, stop
-        ok = bool(torch.isfinite(resid2) & torch.isfinite(rho2)
-                  & torch.isfinite(p2.abs().sum()))
+        ok = trace.host_read(torch.isfinite(resid2) & torch.isfinite(rho2)
+                             & torch.isfinite(p2.abs().sum()), bool)
         if not ok:
             resid = -1.0
             break
         x, xl, r, rl, p, pl, rho = x2, xl2, r2, r2l, p2, p2l, rho2
-        resid = float(resid2)
+        resid = trace.host_read(resid2)
     x = torch.where(op.dirichlet_mask > 0, op.dirichlet_values, x)
     x = sm.bound_eval_neumann(op, x, state.b[fine_i])
     return state.replace_level(fine_i, x=x, x_lag=xl), it, resid

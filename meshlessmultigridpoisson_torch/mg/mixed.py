@@ -20,7 +20,9 @@ Two forms, both host loops here (PyTorch runs eagerly):
 In both forms ``matvec64`` / ``matvec32`` optionally replace the outer /
 inner fine operator (``(x, x_lag) -> (y, y_lag)``), as the matrix-free
 compatible PPE does.  Both forms end with the f64 Neumann boundary-row
-re-solve.
+re-solve, and append the solve's record (passes, BiCGStab iterations,
+V-cycles, host reads and the time blocked in them) to
+``utils.trace.SOLVES``.
 """
 
 from __future__ import annotations
@@ -34,12 +36,14 @@ from meshlessmultigridpoisson_torch.mg.krylov import (
 )
 from meshlessmultigridpoisson_torch.mg.vcycle import Hierarchy, init_like
 from meshlessmultigridpoisson_torch.ops import smoothers as sm
+from meshlessmultigridpoisson_torch.utils import trace
 
 
 def defect_hierarchy(hier32: Hierarchy) -> Hierarchy:
     """Inner hierarchy for defect solves: fine Dirichlet pin values zeroed
-    (the error at pinned rows is 0, not g)."""
-    return homogeneous_hierarchy(hier32)
+    (the error at pinned rows is 0, not g).  Span ``repack.defect``."""
+    with trace.span("repack.defect"):
+        return homogeneous_hierarchy(hier32)
 
 
 def _residual64(op64, x, xl, b, bl, matvec64=None):
@@ -55,7 +59,7 @@ def _residual64(op64, x, xl, b, bl, matvec64=None):
 
 
 def _l1(r, rl) -> float:
-    return float(r.abs().sum() + rl.abs())
+    return trace.host_read(r.abs().sum() + rl.abs())
 
 
 def _prepare(op64, x0, xl0, b, bl):
@@ -91,6 +95,7 @@ def _inner(hier32_defect, r, rl, inner_tol, inner_iters, matvec32=None):
             st.x_lag[fine_i].to(torch.float64) * rn, its, resid)
 
 
+@trace.recorded
 def solve_mixed(
     op64,
     hier32_defect: Hierarchy,
@@ -125,12 +130,14 @@ def solve_mixed(
         r, rl = _residual64(op64, x, xl, b, bl, matvec64)
         res_prev, res = res, _l1(r, rl) / bnorm
         it += 1
+        trace.inner_pass(its)
         if passes is not None:
             passes.append((its, inner_res, res))
     x = sm.bound_eval_neumann(op64, x, b)
     return x, xl, it, res
 
 
+@trace.recorded
 def solve_mixed_stepped(
     op64,
     hier32_defect: Hierarchy,
@@ -160,13 +167,14 @@ def solve_mixed_stepped(
     res = _l1(r, rl) / bnorm
     it, escalations = 0, 0
     while res >= tol and it < max_outer:
-        e, el, _, _ = _inner(hier32_defect, r, rl, inner_tol, inner_iters,
-                             matvec32)
+        e, el, its, _ = _inner(hier32_defect, r, rl, inner_tol, inner_iters,
+                               matvec32)
         x_new = torch.where(op64.dirichlet_mask > 0, op64.dirichlet_values, x + e)
         xl_new = xl + el
         r_new, rl_new = _residual64(op64, x_new, xl_new, b, bl, matvec64)
         res_new = _l1(r_new, rl_new) / bnorm
         it += 1
+        trace.inner_pass(its)
         accepted = res_new < res
         if accepted:  # accept any improvement
             x, xl, r, rl = x_new, xl_new, r_new, rl_new

@@ -27,6 +27,7 @@ from meshlessmultigridpoisson_torch.stencil.operators import (
     build_interp_operator,
     build_level_operator,
 )
+from meshlessmultigridpoisson_torch.utils import trace
 
 # bc_values_fn(points [N,d], normals [N,d], component) -> values [m] at the
 # component's boundary points
@@ -69,23 +70,30 @@ def build_hierarchy(
 
     Returns (hierarchy, ordered_clouds) — callers evaluate sources / exact
     solutions on the ordered clouds.  Every level goes through the
-    setup-time smoother-stability pass (mg/stabilize.py).
+    setup-time smoother-stability pass (mg/stabilize.py).  Each stage's
+    host seconds, summed over levels, replace the last build's in
+    ``utils.trace.SPANS`` (``trace.SETUP_STAGES``).
     """
     if sorted(c.n for c in clouds) != [c.n for c in clouds]:
         clouds = sorted(clouds, key=lambda c: c.n)  # multigrid.cpp:120-122
     L = len(clouds)
     neumann = any(t == "neumann" for t in bc_types)
+    trace.begin(trace.SETUP_STAGES)
 
     ordered: list[PointCloud] = []
     levels = []
     for lvl, cloud in enumerate(clouds):
         cfg = config.level_config(lvl)
-        oc = order_cloud(cloud, cfg.stencil_size, neumann, method=ordering)
+        with trace.span("setup.order"):
+            oc = order_cloud(cloud, cfg.stencil_size, neumann, method=ordering)
         ordered.append(oc)
-        flags = bc_flags_from_cloud(oc, list(bc_types))
-        vals = dense_bc_values(oc, bc_values_fn)
-        levels.append(stabilize_level(build_level_operator(
-            oc, flags, vals, cfg, block_rows=block_rows, device=device)))
+        with trace.span("setup.stencils"):
+            flags = bc_flags_from_cloud(oc, list(bc_types))
+            vals = dense_bc_values(oc, bc_values_fn)
+            op = build_level_operator(oc, flags, vals, cfg, block_rows=block_rows,
+                                      device=device)
+        with trace.span("setup.stabilize"):
+            levels.append(stabilize_level(op))
 
     restrict, prolong = [], []
     for i in range(L - 1):
@@ -98,24 +106,25 @@ def build_hierarchy(
             deg_p = config.level_config(i).poly_deg
         else:
             raise ValueError(f"transfer_poly {config.transfer_poly!r}; use finest|base")
-        restrict.append(
-            build_interp_operator(
-                fine_pts, coarse_pts, deg_r, config.rbf_exp, block_rows,
-                row_map_target=coarse_op.row_map.numpy(),
-                row_map_base=fine_op.row_map.numpy(),
-                n_pad_target=coarse_op.n_pad, n_pad_base=fine_op.n_pad,
-                device=device,
+        with trace.span("setup.transfers"):
+            restrict.append(
+                build_interp_operator(
+                    fine_pts, coarse_pts, deg_r, config.rbf_exp, block_rows,
+                    row_map_target=coarse_op.row_map.numpy(),
+                    row_map_base=fine_op.row_map.numpy(),
+                    n_pad_target=coarse_op.n_pad, n_pad_base=fine_op.n_pad,
+                    device=device,
+                )
             )
-        )
-        prolong.append(
-            build_interp_operator(
-                coarse_pts, fine_pts, deg_p, config.rbf_exp, block_rows,
-                row_map_target=fine_op.row_map.numpy(),
-                row_map_base=coarse_op.row_map.numpy(),
-                n_pad_target=fine_op.n_pad, n_pad_base=coarse_op.n_pad,
-                device=device,
+            prolong.append(
+                build_interp_operator(
+                    coarse_pts, fine_pts, deg_p, config.rbf_exp, block_rows,
+                    row_map_target=fine_op.row_map.numpy(),
+                    row_map_base=coarse_op.row_map.numpy(),
+                    n_pad_target=fine_op.n_pad, n_pad_base=coarse_op.n_pad,
+                    device=device,
+                )
             )
-        )
 
     hier = Hierarchy(
         levels=tuple(levels), restrict=tuple(restrict), prolong=tuple(prolong)

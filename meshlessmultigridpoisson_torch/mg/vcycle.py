@@ -30,6 +30,7 @@ import torch
 
 from meshlessmultigridpoisson_torch.ops import smoothers as sm
 from meshlessmultigridpoisson_torch.ops.ell import spmv
+from meshlessmultigridpoisson_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,10 +129,14 @@ def v_cycle(hier: Hierarchy, state: MGState, residual: bool = True,
     engine has to be told — and returns None in its place.
     ``resolve_last`` re-solves the fine Neumann rows once more after the
     last fine smooth, in that smoother call (``krylov._precond``'s
-    re-solve).
+    re-solve).  Counted in the open solve's record; each level's part
+    (``down``: smooth, residual, restriction; the coarsest's two calls;
+    ``up``: prolongation, correction, smooth) in a profiler range while
+    ``gpu_kernels.SHAPES`` is on (``utils.trace.level_range``).
     """
     L = hier.num_levels
     fine = L - 1
+    trace.vcycle()
     resid = mg_residual(hier, state) if residual else None
 
     if L == 1:
@@ -142,45 +147,48 @@ def v_cycle(hier: Hierarchy, state: MGState, residual: bool = True,
 
     # ---- descend ----
     for i in range(fine, 0, -1):
-        op = hier.levels[i]
-        x, xl, b, bl = state.x[i], state.x_lag[i], state.b[i], state.b_lag[i]
-        if i == fine:  # re-solve the Neumann rows, pin, pre-smooth: one call
-            x, xl = sm.smooth(op, x, xl, b, bl, resolve_first=True)
-        else:
-            x = torch.zeros_like(x)
-            xl = torch.zeros_like(xl)
-            x = sm.apply_dirichlet(op, x, coarse=True)
-            x, xl = sm.smooth(op, x, xl, b, bl)
-        r, _ = sm.residual(op, x, xl, b, bl)
+        with trace.level_range(i, "down", _dev(hier.levels[i])):
+            op = hier.levels[i]
+            x, xl, b, bl = state.x[i], state.x_lag[i], state.b[i], state.b_lag[i]
+            if i == fine:  # re-solve the Neumann rows, pin, pre-smooth: one call
+                x, xl = sm.smooth(op, x, xl, b, bl, resolve_first=True)
+            else:
+                x = torch.zeros_like(x)
+                xl = torch.zeros_like(xl)
+                x = sm.apply_dirichlet(op, x, coarse=True)
+                x, xl = sm.smooth(op, x, xl, b, bl)
+            r, _ = sm.residual(op, x, xl, b, bl)
 
-        opc = hier.levels[i - 1]
-        bc = spmv(hier.restrict[i - 1], r)
-        bc = sm.zero_dirichlet(opc, bc)
-        blc = state.b_lag[i - 1]
-        if op.has_lagrange:
-            blc = torch.zeros_like(blc)
-            bc = torch.where(opc.neumann_mask > 0, torch.zeros_like(bc), bc)
-        state = state.replace_level(i, x=x, x_lag=xl)
-        state = state.replace_level(i - 1, b=bc, b_lag=blc)
+            opc = hier.levels[i - 1]
+            bc = spmv(hier.restrict[i - 1], r)
+            bc = sm.zero_dirichlet(opc, bc)
+            blc = state.b_lag[i - 1]
+            if op.has_lagrange:
+                blc = torch.zeros_like(blc)
+                bc = torch.where(opc.neumann_mask > 0, torch.zeros_like(bc), bc)
+            state = state.replace_level(i, x=x, x_lag=xl)
+            state = state.replace_level(i - 1, b=bc, b_lag=blc)
 
     # ---- coarsest: zero guess, double smooth (multigrid.cpp:91-95) ----
-    op0 = hier.levels[0]
-    x0 = torch.zeros_like(state.x[0])
-    xl0 = torch.zeros_like(state.x_lag[0])
-    x0, xl0 = sm.smooth(op0, x0, xl0, state.b[0], state.b_lag[0])
-    x0, xl0 = sm.smooth(op0, x0, xl0, state.b[0], state.b_lag[0])
-    state = state.replace_level(0, x=x0, x_lag=xl0)
+    with trace.level_range(0, "coarse", _dev(hier.levels[0])):
+        op0 = hier.levels[0]
+        x0 = torch.zeros_like(state.x[0])
+        xl0 = torch.zeros_like(state.x_lag[0])
+        x0, xl0 = sm.smooth(op0, x0, xl0, state.b[0], state.b_lag[0])
+        x0, xl0 = sm.smooth(op0, x0, xl0, state.b[0], state.b_lag[0])
+        state = state.replace_level(0, x=x0, x_lag=xl0)
 
     # ---- ascend ----
     for i in range(1, L):
-        op = hier.levels[i]
-        corr = spmv(hier.prolong[i - 1], state.x[i - 1])
-        if not op.has_lagrange:
-            corr = sm.zero_dirichlet(op, corr)
-        x = state.x[i] + corr
-        x, xl = sm.smooth(op, x, state.x_lag[i], state.b[i], state.b_lag[i],
-                          resolve_last=resolve_last and i == fine)
-        state = state.replace_level(i, x=x, x_lag=xl)
+        with trace.level_range(i, "up", _dev(hier.levels[i])):
+            op = hier.levels[i]
+            corr = spmv(hier.prolong[i - 1], state.x[i - 1])
+            if not op.has_lagrange:
+                corr = sm.zero_dirichlet(op, corr)
+            x = state.x[i] + corr
+            x, xl = sm.smooth(op, x, state.x_lag[i], state.b[i], state.b_lag[i],
+                              resolve_last=resolve_last and i == fine)
+            state = state.replace_level(i, x=x, x_lag=xl)
 
     return state, resid
 

@@ -24,6 +24,7 @@ from meshlessmultigridpoisson_torch.ops.smoothers import (
     push_inhomog_to_rhs,
     set_neumann_source,
 )
+from meshlessmultigridpoisson_torch.utils import trace
 
 PI = np.pi
 
@@ -219,8 +220,10 @@ def fine_rhs(op, source: np.ndarray, neumann: bool) -> torch.Tensor:
     """The fine level's right-hand side in ``op``'s permuted padded rows, on
     its device and in its dtype: the source, then on Neumann problems the
     boundary data g at the Neumann rows and the condensation pushdown
-    (through ``op``'s backend: the ``compact_rows`` kernel on a GpuLevel)."""
-    b = op.to_padded(torch.from_numpy(source).to(op.smooth_mask))
+    (through ``op``'s backend: the ``compact_rows`` kernel on a GpuLevel).
+    The source's copy to a card is counted as a host sync of the next solve
+    (``utils.trace.input_copy``)."""
+    b = op.to_padded(trace.input_copy(torch.from_numpy(source), op.smooth_mask))
     if neumann:
         b = set_neumann_source(op, b, coarse=False)  # fine g values
         b = push_inhomog_to_rhs(op, b)
