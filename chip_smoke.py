@@ -1680,13 +1680,13 @@ def main(argv=None) -> int:
     if not abs(rec.l1_error - THREED_REF_L1) <= THREED_L1_RTOL * THREED_REF_L1:
         return fail(f"3d: l1_error {rec.l1_error:.6e} not within {THREED_L1_RTOL:.0%} "
                     f"of the reference's {THREED_REF_L1:.6e}")
-    # the kernels at the 3D shapes: stencils of 25 and 50, the colored
-    # level's x patches
+    # the kernels at the 3D shapes: stencils of 25 and 50, the x values the
+    # colored level's blocks stage
     g3 = gpu_hierarchy(prob.hierarchy, dev, torch.float32)
     outer3 = gpu_level_from_operator(prob.hierarchy.levels[-1], dev, torch.float64,
                                      sweep=False)
     fine3, nl3 = g3.levels[-1], len(g3.levels)
-    print(f"3d kernel vs plain: x patches a block on L3 {fine3.sweep.patches.pids.shape[1]}",
+    print(f"3d kernel vs plain: x values staged a block on L3 {fine3.sweep.reads.counts}",
           flush=True)
     check_spmv(fine3.A.role, "3D fine matvec", fine3.A)
     check_spmv(outer3.A.role, "3D outer f64 operator", outer3.A)
@@ -1923,8 +1923,8 @@ def main(argv=None) -> int:
     print(f"bench operator (host, shared by the bench, kexp and ksweepprobe): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     n1m = bench_op["ell"].nrows_pad
-    patches = gk.block_patch_tables(gk.global_cols(bench_op["ell"]).numpy(),
-                                    n1m // gk.LANES, dev)
+    reads = gk.block_read_tables(gk.global_cols(bench_op["ell"]).numpy(),
+                                 n1m // gk.LANES, dev)
     for dt, kdt in ((torch.float32, torch.float32), (torch.float64, torch.float64),
                     (torch.float32, torch.bfloat16)):
         sw = gk.BlockSweep(
@@ -1932,7 +1932,7 @@ def main(argv=None) -> int:
             kT=torch.from_numpy(bench_op["kT"]).to(dev, kdt),
             lagc=torch.zeros(n1m, dtype=dt, device=dev),
             order=torch.as_tensor(bench_op["order"], dtype=torch.int32).to(dev),
-            phase_ptr=bench_op["phase_ptr"], serial=False, role="sweep8", patches=patches)
+            phase_ptr=bench_op["phase_ptr"], serial=False, role="sweep8", reads=reads)
         check_smooth(f"bench {n1m} rows, {sw.nphases} colors", sw)
         del sw
         torch.cuda.empty_cache()

@@ -138,12 +138,12 @@ def run(seed: int = 0, op: dict | None = None) -> dict:
     storage = torch.arange(nb, dtype=torch.int32, device=dev)
     colored = torch.from_numpy(op["order"].astype(np.int32)).to(dev)
 
-    patches = gk.block_patch_tables(gk.global_cols(ell).numpy(), nb, dev)
+    reads = gk.block_read_tables(gk.global_cols(ell).numpy(), nb, dev)
 
     def sweep(kt, order, ptr, serial, role):
         return gk.BlockSweep(A=A, kT=kt, lagc=lagc, order=order, phase_ptr=ptr,
                              serial=serial, role=role,
-                             patches=patches if role == "sweep8" else None)
+                             reads=reads if role == "sweep8" else None)
 
     rows = {}
 

@@ -40,14 +40,15 @@
 //   launch (cudaLaunchCooperativeKernel): grid = min(largest color's
 //   blocks, CTAs resident at once); CTA i takes blocks i, i + grid, ... of
 //   each color, with a grid barrier (cooperative_groups this_grid().sync())
-//   between colors.  Each block first copies the 128-row x patches it
-//   reads (its own and its neighbours') into shared memory with coalesced
-//   loads, then gathers from there through int16 local columns (patch
-//   slot * 128 + row in the patch), as the TPU's kernels6 tables do: x
-//   changes within the launch, so the gather cannot read it through L1,
-//   and scattered 4-byte loads from L2 were the larger part of a
-//   fine-level block's time.  The Lagrange dot: each CTA sums lag_row *
-//   x_new over the rows it writes (every row is written once a sweep, by
+//   between colors.  Each block first stages its read set, the sorted
+//   distinct x rows its ELL entries name (ops/gpu_kernels.py
+//   block_read_tables; its index list comes with the block's ELL tile),
+//   into shared memory, then gathers from there through int16 local
+//   columns (the place of each entry's column in the list): x changes
+//   within the launch, so the gather cannot read it through L1, and its
+//   scattered 4-byte loads from L2 inside the gather were the larger part
+//   of a fine-level block's time.  The Lagrange dot: each CTA sums lag_row
+//   * x_new over the rows it writes (every row is written once a sweep, by
 //   the CTA that owns its block) and stores the partial in a scratch
 //   vector (double-buffered by sweep parity); after the color's barrier
 //   every CTA adds the partials in the same fixed order, so all CTAs hold
@@ -80,21 +81,25 @@
 // fits).  The ELL buffer of block j is refilled with block j + ne's rows as
 // soon as block j's gather has passed its barrier (during the product and
 // the colored kernel's grid barrier); the K buffer of block j with block
-// j + nk's tile as soon as the product has passed its barrier.  After a
-// grid barrier only the x patches' copy and the gather lie on the
-// dependent path.
+// j + nk's tile as soon as the product has passed its barrier.  The
+// colored kernel's ELL tile carries the block's read list after the
+// columns (a third copy on the same mbarrier).  After a grid barrier only
+// the read set's copy and the gather lie on the dependent path.
 //
-// What bounds it on an H100.  The colored sweep of the 133k-row fine level
-// moves ~68 MB of K a sweep (bound ~0.025 ms), but the parent design spent
-// 7-18 us of device time and ~15 us of host time on each of its 13-20
-// launches a sweep (PERF.md): latency, not bytes.  Here a smoother call is
-// one launch; a color costs a grid barrier plus a shared-memory-fed chain
-// (~9 us a color on that level, PERF.md: far above its bytes still).
-// The coarse chain (20 blocks) was 5.9 us a block of dependent device-memory
-// loads; here its gather reads shared memory only.  Per block the loads
-// that wait for nothing but the block id (b, lag_col, the own rows' x and
-// lag_row) are issued first, and the gather keeps two 32-entry chunks of
-// each of a warp's 8 rows in flight.
+// What bounds it on an H100: latency, not bytes.  A block step reads a
+// 64-KB K tile, ~2.5 us a block an SM when all 132 SMs share the card's
+// 3.35 TB/s, but a step of the 1.09M-row 3D fine level takes ~8 us: ~2.7
+// us waiting at grid barriers (a color's slowest CTA), ~1.2 us of gather,
+// ~0.6 us of staging, the rest the K wait, the product and the b and
+// lag_col loads (clock64 phases, PERF.md).  After a barrier a block stages
+// only its read set, 600-1,100 values on the benchmark's levels, 4-8 times
+// fewer than the 128-row slices of x they fall in: at most kStageBatch
+// independent loads a thread in flight, their indices already in shared
+// memory.  The kd-tile order of the clouds keeps a warp's 32 sorted rows on
+// few sectors.  The coarse chain (20 blocks) reads shared memory only.  Per
+// block the loads that wait for nothing but the block id (b, lag_col, the
+// own rows' x and lag_row, the read count) are issued first, and the gather
+// keeps two 32-entry chunks of each of a warp's 8 rows in flight.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -126,17 +131,19 @@ constexpr int kWarps = kThreads / kWarp;         // 16
 constexpr int kRowsPerWarp = kBlk / kWarps;      // 8 gather rows a warp
 constexpr int kResolveBatch = 4;  // boundary rows a warp sums at once
 constexpr int kBars = 4;          // mbarriers: 2 K buffers, 2 ELL buffers
+constexpr int kStageBatch = 4;    // x loads a thread has in flight staging
 
 template <typename T, typename KT>
 struct SmoothArgs {
   const T* vals;  // [n_pad, width] level matrix, row-major ELL
   const int* cols;   // global columns (coarse_smooth)
-  // colored_smooth's x patches: block b reads x rows pids[b][s] * 128 + l
-  // for its npid[b] slots s; lcols[row][k] = s * 128 + l (int16)
+  // colored_smooth's read sets: block b stages x rows rows[b][0 .. nr[b])
+  // (sorted, distinct; padding repeats the first); lcols[row][k] is the
+  // place of entry k's column in its block's list (int16)
   const short* lcols;
-  const int* pids;   // [nb, npmax]
-  const int* npid;   // [nb]
-  int npmax;
+  const int* rows;   // [nb, nrx], nrx a multiple of 4 (16-byte lists)
+  const int* nr;     // [nb]
+  int nrx;
   int width;
   int n_pad;
   const T* b;
@@ -169,13 +176,14 @@ struct SmoothArgs {
 };
 
 // Shared-memory layout (bytes), the same on host and device: the mbarriers,
-// nk K tiles, ne ELL tiles (values, then columns of cbytes each), the
-// colored kernel's x patches (npx values), t, the product's partial sums,
-// the reduction scratch, then the coarse kernel's four level vectors and
-// the boundary rows' diagonals and targets.  Regions are 128-aligned.
+// nk K tiles, ne ELL tiles (values, then columns of cbytes each, then the
+// colored kernel's read list of nrx rows), its staged x values (nrx), t,
+// the product's partial sums, the reduction scratch, then the coarse
+// kernel's four level vectors and the boundary rows' diagonals and
+// targets.  Regions are 128-aligned.
 struct Layout {
-  unsigned ktile, kbuf, evals, etile, ebuf, xp, t, part, red, vec, bdiag,
-      brow, total;
+  unsigned ktile, kbuf, evals, ecols, erows, etile, ebuf, xp, t, part, red,
+      vec, bdiag, brow, total;
 };
 
 __host__ __device__ inline unsigned al128(unsigned v) {
@@ -184,7 +192,7 @@ __host__ __device__ inline unsigned al128(unsigned v) {
 
 template <typename T, typename KT>
 __host__ __device__ inline Layout make_layout(int nk, int ne, int width,
-                                              int cbytes, int npx, int n_vec,
+                                              int cbytes, int nrx, int n_vec,
                                               int m) {
   Layout L;
   unsigned off = 128;  // kBars mbarriers
@@ -192,11 +200,13 @@ __host__ __device__ inline Layout make_layout(int nk, int ne, int width,
   L.kbuf = off;
   off += nk * L.ktile;
   L.evals = kBlk * width * sizeof(T);
-  L.etile = al128(L.evals + kBlk * width * cbytes);
+  L.ecols = kBlk * width * cbytes;
+  L.erows = nrx * sizeof(int);
+  L.etile = al128(L.evals + L.ecols + L.erows);
   L.ebuf = off;
   off += ne * L.etile;
   L.xp = off;
-  off += al128(npx * sizeof(T));
+  off += al128(nrx * sizeof(T));
   L.t = off;
   off += al128(kBlk * sizeof(T));
   L.part = off;
@@ -256,17 +266,20 @@ struct Ring {
               kbar + slot);
   }
 
+  // the block's ELL values, its columns and (colored) its read list
   __device__ void load_e(const SmoothArgs<T, KT>& a, int slot, int blk) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     const size_t e0 = static_cast<size_t>(blk) * kBlk * a.width;
-    const unsigned ncol =
-        kBlk * a.width * (a.lcols != nullptr ? sizeof(short) : sizeof(int));
     const void* csrc = a.lcols != nullptr ? static_cast<const void*>(a.lcols + e0)
                                           : static_cast<const void*>(a.cols + e0);
     unsigned char* dst = ebuf + slot * L.etile;
-    mbar_expect(ebar + slot, L.evals + ncol);
+    mbar_expect(ebar + slot, L.evals + L.ecols + L.erows);
     bulk_load(dst, a.vals + e0, L.evals, ebar + slot);
-    bulk_load(dst + L.evals, csrc, ncol, ebar + slot);
+    bulk_load(dst + L.evals, csrc, L.ecols, ebar + slot);
+    if (L.erows > 0) {
+      bulk_load(dst + L.evals + L.ecols, a.rows + static_cast<size_t>(blk) * a.nrx,
+                L.erows, ebar + slot);
+    }
   }
 };
 
@@ -299,9 +312,10 @@ struct SharedVecs {
   __device__ T ld_lagr(int i) const { return lagr[i]; }
 };
 
-// the colored kernel's gather: x from the block's patches in shared memory
+// the colored kernel's gather: x from the block's staged read set in shared
+// memory
 template <typename T>
-struct PatchX {
+struct StagedX {
   const T* xp;
   __device__ T ld_x(int i) const { return xp[i]; }
 };
@@ -478,21 +492,22 @@ __device__ __forceinline__ void start_ring(const SmoothArgs<T, KT>& a,
   __syncthreads();
 }
 
-// One block of the walk (the j-th of this CTA): (colored: copy the block's
-// x patches into shared memory,) wait for its ELL rows (or read them from
-// device memory), gather, refill the ELL buffer, wait for K, the product,
-// refill the K buffer.  Returns this thread's lag_row * x_new.
-template <typename T, typename KT, bool kPatches, class V>
+// One block of the walk (the j-th of this CTA): wait for its ELL rows (or
+// read them from device memory), (colored: copy the block's read set of x
+// into shared memory,) gather, refill the ELL buffer, wait for K, the
+// product, refill the K buffer.  Returns this thread's lag_row * x_new.
+template <typename T, typename KT, bool kReads, class V>
 __device__ __forceinline__ T block_step(const SmoothArgs<T, KT>& a,
                                         Ring<T, KT>& ring, Cursor& kc,
                                         Cursor& ec, int j, int blk,
                                         const V& vec, T xl, T* xp, T* t_s,
                                         T* part) {
-  using CT = typename std::conditional<kPatches, short, int>::type;
+  using CT = typename std::conditional<kReads, short, int>::type;
   const int row0 = blk * kBlk;
   // loads that wait for nothing but the block id: the rows' b and lag_col *
   // x_lag (lane 0 of each warp), the own rows' x and lag_row (threads <
-  // 128; nothing else writes these rows until this block's update)
+  // 128; nothing else writes these rows until this block's update), the
+  // read set's size
   T bq[kRowsPerWarp], lq[kRowsPerWarp];
   if (threadIdx.x % kWarp == 0) {
 #pragma unroll
@@ -507,33 +522,47 @@ __device__ __forceinline__ T block_step(const SmoothArgs<T, KT>& a,
     xo = vec.ld_x(row0 + threadIdx.x);
     if (vec.lagr != nullptr) lr = vec.ld_lagr(row0 + threadIdx.x);
   }
-  if constexpr (kPatches) {  // coalesced: 128 rows of x a patch
-    const int* pl = a.pids + static_cast<size_t>(blk) * a.npmax;
-    const int n = a.npid[blk] * kBlk;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      xp[i] = vec.ld_x(pl[i / kBlk] * kBlk + i % kBlk);
-    }
-  }
+  const int nread = kReads ? a.nr[blk] : 0;
   const T* v;
   const CT* c;
+  const int* rl = nullptr;  // the read list
   const size_t e0 = static_cast<size_t>(row0) * a.width;
   if (a.ne > 0) {
     const int s = j % a.ne;
+    const unsigned char* tile = ring.ebuf + s * ring.L.etile;
     mbar_wait(ring.ebar + s, (j / a.ne) & 1);
-    v = reinterpret_cast<const T*>(ring.ebuf + s * ring.L.etile);
-    c = reinterpret_cast<const CT*>(ring.ebuf + s * ring.L.etile +
-                                    ring.L.evals);
+    v = reinterpret_cast<const T*>(tile);
+    c = reinterpret_cast<const CT*>(tile + ring.L.evals);
+    if constexpr (kReads) {
+      rl = reinterpret_cast<const int*>(tile + ring.L.evals + ring.L.ecols);
+    }
   } else {
     v = a.vals + e0;
-    if constexpr (kPatches) {
+    if constexpr (kReads) {
       c = a.lcols + e0;
+      rl = a.rows + static_cast<size_t>(blk) * a.nrx;
     } else {
       c = a.cols + e0;
     }
   }
-  if constexpr (kPatches) {
-    __syncthreads();  // the patches are in
-    gather_t<T, KT>(v, c, a.width, PatchX<T>{xp}, bq, lq, t_s);
+  if constexpr (kReads) {
+    // the read set: each thread's loads of a round issued before its
+    // stores, kStageBatch * kThreads values a round
+    for (int i0 = threadIdx.x; i0 < nread; i0 += kStageBatch * kThreads) {
+      T xv[kStageBatch] = {};
+#pragma unroll
+      for (int q = 0; q < kStageBatch; ++q) {
+        const int i = i0 + q * kThreads;
+        if (i < nread) xv[q] = vec.ld_x(rl[i]);
+      }
+#pragma unroll
+      for (int q = 0; q < kStageBatch; ++q) {
+        const int i = i0 + q * kThreads;
+        if (i < nread) xp[i] = xv[q];
+      }
+    }
+    __syncthreads();  // the read set is in
+    gather_t<T, KT>(v, c, a.width, StagedX<T>{xp}, bq, lq, t_s);
   } else {
     gather_t<T, KT>(v, c, a.width, vec, bq, lq, t_s);
   }
@@ -571,7 +600,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     colored_smooth_kernel(const SmoothArgs<T, KT> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout<T, KT>(a.nk, a.ne, a.width, sizeof(short),
-                                      a.npmax * kBlk, 0, 0);
+                                      a.nrx, 0, 0);
   Ring<T, KT> ring = make_ring<T, KT>(smem, L);
   T* xp = reinterpret_cast<T*>(smem + L.xp);
   T* t_s = reinterpret_cast<T*>(smem + L.t);
@@ -734,14 +763,17 @@ int launch_smooth(SmoothArgs<T, KT> a, int coarse, int max_phase,
   const int n_vec = coarse ? a.n_pad : 0;
   const int m = coarse ? a.bnrows : 0;
   const int cbytes = coarse ? sizeof(int) : sizeof(short);
-  const int npx = coarse ? 0 : a.npmax * kBlk;
-  if (!coarse && (a.lcols == nullptr || a.pids == nullptr || a.npid == nullptr)) {
+  if (coarse) {  // no read sets: the ELL tiles hold values and columns only
+    a.rows = nullptr;
+    a.nrx = 0;
+  } else if (a.lcols == nullptr || a.rows == nullptr || a.nr == nullptr ||
+             a.nrx < 1 || a.nrx % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   unsigned bytes = 0;
   a.nk = 0;
   for (const auto& p : kPlans) {
-    const Layout L = make_layout<T, KT>(p[0], p[1], a.width, cbytes, npx, n_vec, m);
+    const Layout L = make_layout<T, KT>(p[0], p[1], a.width, cbytes, a.nrx, n_vec, m);
     if (L.total <= static_cast<unsigned>(optin)) {
       a.nk = p[0];
       a.ne = p[1];
@@ -800,8 +832,8 @@ int launch_smooth(SmoothArgs<T, KT> a, int coarse, int max_phase,
 
 template <typename T, typename KT>
 int smooth_entry(int coarse, const T* vals, const int* cols,
-                 const short* lcols, const int* pids, const int* npid,
-                 int npmax, int width,
+                 const short* lcols, const int* rows, const int* nr,
+                 int nrx, int width,
                  int n_pad, const T* b, const T* lagc, const KT* kT,
                  const int* order, const int* ptr, int nphases, int max_phase,
                  int iters, double omega, const T* lagr, const T* blag,
@@ -814,9 +846,9 @@ int smooth_entry(int coarse, const T* vals, const int* cols,
   a.vals = vals;
   a.cols = cols;
   a.lcols = lcols;
-  a.pids = pids;
-  a.npid = npid;
-  a.npmax = npmax;
+  a.rows = rows;
+  a.nr = nr;
+  a.nrx = nrx;
   a.width = width;
   a.n_pad = n_pad;
   a.b = b;
@@ -851,15 +883,16 @@ int smooth_entry(int coarse, const T* vals, const int* cols,
 
 }  // namespace
 
-// coarse: 0 colored_smooth (cooperative grid; lcols, pids, npid, npmax:
-// its x patches), 1 coarse_smooth (one CTA; the patch arguments unread).
+// coarse: 0 colored_smooth (cooperative grid; lcols, rows, nr, nrx: its
+// blocks' read sets), 1 coarse_smooth (one CTA; the read-set arguments
+// unread).
 // dmask, dvals: the pin, non-null exactly when resolve_first is set;
 // resolve_first needs x_in != x.
 // info (4 ints, may be null): grid, K buffers, ELL buffers, shared bytes.
 #define MMP_SMOOTH_ENTRY(NAME, T, KT)                                        \
   extern "C" int NAME(int coarse, const T* vals, const int* cols,            \
-                      const short* lcols, const int* pids, const int* npid,  \
-                      int npmax, int width,                                  \
+                      const short* lcols, const int* rows, const int* nr,    \
+                      int nrx, int width,                                    \
                       int n_pad, const T* b, const T* lagc, const KT* kT,    \
                       const int* order, const int* ptr, int nphases,         \
                       int max_phase, int iters, double omega, const T* lagr, \
@@ -869,7 +902,7 @@ int smooth_entry(int coarse, const T* vals, const int* cols,
                       int bnrows, const T* dmask, const T* dvals,            \
                       int resolve_first, int resolve_last, const T* x_in,    \
                       T* x, T* partials, void* stream, int* info) {          \
-    return smooth_entry<T, KT>(coarse, vals, cols, lcols, pids, npid, npmax, \
+    return smooth_entry<T, KT>(coarse, vals, cols, lcols, rows, nr, nrx,     \
                                width, n_pad, b, lagc,                        \
                                kT, order, ptr, nphases, max_phase, iters,    \
                                omega, lagr, blag, xlag_in, xlag_out, bvals,  \

@@ -71,8 +71,8 @@ from meshlessmultigridpoisson_torch.ops.gpu_kernels import (
     ClassSweep,
     DeviceCompact,
     DeviceEll,
-    block_patch_tables,
     block_patches,
+    block_read_tables,
     block_smooth,
     build_oneshot_K,
     class_sweep,
@@ -246,7 +246,7 @@ def gpu_level_from_operator(
             phase_ptr=ptr,
             serial=not colored,
             role=role,
-            patches=block_patch_tables(gcols, nb, device) if colored else None,
+            reads=block_read_tables(gcols, nb, device) if colored else None,
         )
     level = GpuLevel(
         A=A,

@@ -810,17 +810,20 @@ def kiso_spmv(A: KisoEll, x: torch.Tensor, out: torch.Tensor | None = None):
 
 
 @dataclasses.dataclass(frozen=True)
-class BlockPatches:
-    """The x patches of a colored sweep's blocks (``colored_smooth`` copies
+class BlockReads:
+    """The x values a colored sweep's blocks read (``colored_smooth`` copies
     them into shared memory before a block's gather): block b reads x rows
-    ``pids[b, s] * 128 + l`` for its ``npid[b]`` slots s (patch ids in
-    ascending order; padding slots repeat the first), and ``lcols[row, k] =
-    s * 128 + l`` is each ELL entry's place among them (int16: at most 256
-    patches a block, the v6 layout's bound)."""
+    ``rows[b, :nr[b]]``, the sorted distinct global columns of its ELL
+    entries (padding entries included; padding slots repeat the first), and
+    ``lcols[row, k]`` is each entry's place among them (int16: at most
+    ``READ_MAX`` a block).  ``counts``: the x values staged a block (mean,
+    max) beside the rows of the 128-row x patches that hold them, host
+    numbers."""
 
-    pids: torch.Tensor  # [nb, npmax] int32
-    npid: torch.Tensor  # [nb] int32
+    rows: torch.Tensor  # [nb, nr_max] int32, nr_max a multiple of 4
+    nr: torch.Tensor  # [nb] int32
     lcols: torch.Tensor  # [n_pad, width] int16
+    counts: dict = dataclasses.field(default_factory=dict, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -846,8 +849,8 @@ class BlockSweep:
     # parent designs (timing only), or a PROBE_MODES role (``sweep_probe``
     # only)
     role: str
-    # role "sweep8": its blocks' x patches (``block_patch_tables``)
-    patches: BlockPatches | None = None
+    # role "sweep8": the x values its blocks read (``block_read_tables``)
+    reads: BlockReads | None = None
 
     @property
     def nphases(self) -> int:
@@ -1092,17 +1095,19 @@ def _al128(v: int) -> int:
 
 
 def smooth_smem_bytes(nk: int, ne: int, width: int, dtype, k_dtype, n_vec: int = 0,
-                      m: int = 0, cbytes: int = 4, npx: int = 0) -> int:
+                      m: int = 0, cbytes: int = 4, nrx: int = 0) -> int:
     """Shared bytes of a ``block_smooth`` launch with ``nk`` K buffers and
     ``ne`` ELL buffers of columns of ``cbytes`` each (block_smooth.cu's
-    ``make_layout``): the mbarriers, the buffers, ``colored_smooth``'s
-    ``npx`` patch values (its columns are int16, ``cbytes`` 2), t, the
-    product's partial sums, the reduction scratch and, for
+    ``make_layout``): the mbarriers, the buffers (``colored_smooth``'s
+    columns are int16, ``cbytes`` 2, followed by the block's read list of
+    ``nrx`` int32 rows), ``colored_smooth``'s ``nrx`` staged x values, t,
+    the product's partial sums, the reduction scratch and, for
     ``coarse_smooth``, four level vectors of ``n_vec`` rows and ``m``
     boundary rows' diagonals and targets."""
     es, ks = _ES[dtype], _ES[k_dtype]
-    return (128 + nk * LANES * LANES * ks + ne * _al128(LANES * width * (es + cbytes))
-            + _al128(npx * es) + _al128(LANES * es) + _al128(512 * es) + _al128(17 * es)
+    return (128 + nk * LANES * LANES * ks
+            + ne * _al128(LANES * width * (es + cbytes) + 4 * nrx)
+            + _al128(nrx * es) + _al128(LANES * es) + _al128(512 * es) + _al128(17 * es)
             + _al128(4 * n_vec * es) + _al128(m * es) + _al128(4 * m))
 
 
@@ -1115,25 +1120,51 @@ def coarse_smooth_fits(n_pad: int, dtype, k_dtype, bound_rows: int) -> bool:
     return smooth_smem_bytes(1, 0, 0, dtype, k_dtype, n_pad, bound_rows) <= SMEM_OPTIN
 
 
-def block_patch_tables(gcols: np.ndarray, nb: int, device) -> BlockPatches:
-    """``BlockPatches`` of global int32 columns ``gcols`` [nb * 128, width]
-    (padding entries included), on ``device``; raises past 256 patches a
-    block."""
-    gc = np.asarray(gcols, dtype=np.int64).reshape(nb, -1)
-    lists = [np.unique(r >> 7) for r in gc]
-    npmax = max(u.size for u in lists)
-    if npmax > V6_MAX_PATCHES:
-        raise ValueError(f"a block reads {npmax} x patches, more than {V6_MAX_PATCHES}")
-    pids = np.empty((nb, npmax), dtype=np.int32)
-    lcols = np.empty(gc.shape, dtype=np.int16)
-    for b, u in enumerate(lists):
-        pids[b, : u.size] = u
-        pids[b, u.size:] = u[0]
-        lcols[b] = (np.searchsorted(u, gc[b] >> 7) << 7) | (gc[b] & 127)
-    npid = np.array([u.size for u in lists], dtype=np.int32)
-    return BlockPatches(pids=torch.from_numpy(pids).to(device),
-                        npid=torch.from_numpy(npid).to(device),
-                        lcols=torch.from_numpy(lcols.reshape(np.shape(gcols))).to(device))
+READ_MAX = 32767  # x values a block may read: int16 places in BlockReads.lcols
+
+
+def block_read_tables(gcols: np.ndarray, nb: int, device) -> BlockReads:
+    """``BlockReads`` of global int32 columns ``gcols`` [nb * 128, width]
+    (padding entries included), on ``device``; raises past ``READ_MAX``
+    values a block.  One sort a block of (column, position) keys gives the
+    distinct columns in order and each entry's rank among them."""
+    g = np.asarray(gcols).reshape(nb, -1)
+    nent = g.shape[1]
+    lo = g.min(axis=1, keepdims=True).astype(np.int64)
+    span = int((g.max(axis=1, keepdims=True) - lo).max())
+    bits = max(nent - 1, 1).bit_length()
+    kt = np.uint32 if span.bit_length() + bits <= 32 else np.uint64
+    keys = (g - lo).astype(kt) << kt(bits)
+    keys |= np.arange(nent, dtype=kt)
+    keys.sort(axis=1)
+    col = keys >> kt(bits)
+    new = np.empty(col.shape, dtype=bool)
+    new[:, 0] = True
+    np.not_equal(col[:, 1:], col[:, :-1], out=new[:, 1:])
+    nr = np.count_nonzero(new, axis=1)
+    if nr.max() > READ_MAX:
+        raise ValueError(f"a block reads {nr.max()} x values, more than {READ_MAX}")
+    rank = np.cumsum(new, axis=1, dtype=np.int16)
+    rank -= 1
+    nr_max = -(-int(nr.max()) // 4) * 4  # 16-byte lists for cp.async.bulk
+    # the distinct columns first, in order: the repeats sort past them
+    top = np.iinfo(kt).max
+    first = np.sort(np.where(new, col, top), axis=1)[:, :nr_max]
+    rows = (np.where(first == top, col[:, :1], first).astype(np.int64) + lo).astype(np.int32)
+    pos = keys & kt((1 << bits) - 1)
+    pos += (np.arange(nb, dtype=kt) * kt(nent))[:, None]
+    lcols = np.empty(nb * nent, dtype=np.int16)
+    lcols[pos.ravel()] = rank.ravel()
+    pid = rows >> 7  # the 128-row x patch of each value
+    patches = 1 + np.count_nonzero((pid[:, 1:] != pid[:, :-1])
+                                   & (np.arange(1, nr_max) < nr[:, None]), axis=1)
+    counts = {"staged_x_mean": float(nr.mean()), "staged_x_max": int(nr.max()),
+              "patch_rows_mean": float(patches.mean() * LANES),
+              "patch_rows_max": int(patches.max() * LANES)}
+    return BlockReads(rows=torch.from_numpy(rows).to(device),
+                      nr=torch.from_numpy(nr.astype(np.int32)).to(device),
+                      lcols=torch.from_numpy(lcols.reshape(np.shape(gcols))).to(device),
+                      counts=counts)
 
 
 @functools.lru_cache(maxsize=256)
@@ -1227,20 +1258,21 @@ def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
     if coarse and not coarse_smooth_fits(n_pad, dt, kdt, m):
         raise ValueError(f"coarse_smooth: a level of {n_pad} rows ({m} boundary rows) "
                          f"in {dt} does not fit {SMEM_OPTIN} B of shared memory")
-    pt = sw.patches
+    rd = sw.reads
     if not coarse:
-        if pt is None:
-            raise ValueError("colored_smooth needs the blocks' x patches "
-                             "(BlockSweep.patches: block_patch_tables)")
-        _check("lcols", pt.lcols, dev, torch.int16, sw.A.vals.shape)
-        _check("pids", pt.pids, dev, torch.int32, (nb, pt.pids.shape[1]))
-        _check("npid", pt.npid, dev, torch.int32, (nb,))
-        if pt.lcols.data_ptr() % 16:
-            raise ValueError("block_smooth: lcols is not 16-byte aligned")
-        need = smooth_smem_bytes(1, 0, sw.A.width, dt, kdt, cbytes=2,
-                                 npx=pt.pids.shape[1] * LANES)
+        if rd is None:
+            raise ValueError("colored_smooth needs the x values its blocks read "
+                             "(BlockSweep.reads: block_read_tables)")
+        nrx = rd.rows.shape[1]
+        _check("lcols", rd.lcols, dev, torch.int16, sw.A.vals.shape)
+        _check("rows", rd.rows, dev, torch.int32, (nb, nrx))
+        _check("nr", rd.nr, dev, torch.int32, (nb,))
+        if nrx % 4 or rd.lcols.data_ptr() % 16 or rd.rows.data_ptr() % 16:
+            raise ValueError("block_smooth: lcols and rows must be 16-byte aligned, "
+                             "rows a multiple of 4 wide")
+        need = smooth_smem_bytes(1, 0, sw.A.width, dt, kdt, cbytes=2, nrx=nrx)
         if need > SMEM_OPTIN:
-            raise ValueError(f"colored_smooth: {pt.pids.shape[1]} x patches a block in "
+            raise ValueError(f"colored_smooth: {nrx} x values a block in "
                              f"{dt} do not fit {SMEM_OPTIN} B of shared memory")
     xl = torch.as_tensor(x_lag, dtype=dt, device=dev).reshape(())
     _check("x_lag", xl, dev, dt, ())
@@ -1272,8 +1304,7 @@ def block_smooth(sw: BlockSweep, x, x_lag, b, b_lag=None, iters: int = 1,
     fn = getattr(_load(), f"mmp_block_smooth_{_SWEEP_SUFFIX[(dt, kdt)]}")
     rc = _call(sw.role, n_pad, n_pad, fn, coarse, sw.A.vals.data_ptr(), sw.A.cols.data_ptr(),
                *((None, None, None, 0) if coarse else
-                 (pt.lcols.data_ptr(), pt.pids.data_ptr(), pt.npid.data_ptr(),
-                  pt.pids.shape[1])),
+                 (rd.lcols.data_ptr(), rd.rows.data_ptr(), rd.nr.data_ptr(), nrx)),
                sw.A.width, n_pad, b.data_ptr(), sw.lagc.data_ptr(), sw.kT.data_ptr(),
                sw.order.data_ptr(), ptr.data_ptr(), sw.nphases, max_phase, iters,
                float(omega), ptr_of(lag_row), None if lag_row is None else bl.data_ptr(),

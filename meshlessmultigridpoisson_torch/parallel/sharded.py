@@ -176,7 +176,7 @@ def shard_level(f: ShardedFineLevel, device, dtype=torch.float64,
         lagc=_t(f.lag_col, device, dtype),
         order=_t(order.astype(np.int32), device), phase_ptr=tuple(int(p) for p in ptr),
         serial=not colored, role=role,
-        patches=gk.block_patch_tables(cols, nb, device) if colored else None)
+        reads=gk.block_read_tables(cols, nb, device) if colored else None)
     nb_rows = int((f.bound_rows < ns).sum())
     bound = gk.DeviceCompact(
         vals=_t(f.bound_vals, device, dtype), cols=_t(f.bound_lcols_ext, device),

@@ -213,7 +213,7 @@ def sweeps(kind: str, op, device, k_rule: str = "reference") -> dict:
     storage = dataclasses.replace(
         lv.sweep, kT=torch.from_numpy(kT).to(device), phase_ptr=(0, nb), serial=True,
         order=torch.arange(nb, dtype=torch.int32, device=device), role="sweep6",
-        patches=None)
+        reads=None)
     out = {"level": lv, base: lambda x, xl, b: gk.storage_chain(storage, x, xl, b)}
     if kind == "stale":
         stale = gk.stale_sweep_of(storage)
@@ -229,7 +229,7 @@ def sweeps(kind: str, op, device, k_rule: str = "reference") -> dict:
     colored = dataclasses.replace(
         storage, order=torch.from_numpy(order.astype(np.int32)).to(device),
         phase_ptr=ptr, serial=False, role="sweep8",
-        patches=gk.block_patch_tables(gcols, nb, device))
+        reads=gk.block_read_tables(gcols, nb, device))
     out[test] = lambda x, xl, b: gk.block_oneshot_sweep(colored, x, xl, b)
     return out
 

@@ -393,7 +393,10 @@ def profile_hierarchy(hier, reps: int = 5, k: int = 16) -> list[dict[str, Any]]:
     every level but the finest; ``prolong_bound_ms``: the prolongation from
     the next coarser, on every level but the coarsest; ``spmv_bytes`` over
     their tables) and of its boundary re-solve (``resolve_bound_ms``, 0
-    without boundary rows), each 0 where the level has none.
+    without boundary rows), each 0 where the level has none; on a level
+    whose smoother stages its blocks' read sets (role ``sweep8``), the x
+    values staged a block and the rows of the x patches that hold them
+    (``BlockReads.counts``: mean and max over the blocks).
     """
     from meshlessmultigridpoisson_torch.ops import smoothers as sm
 
@@ -447,6 +450,7 @@ def profile_hierarchy(hier, reps: int = 5, k: int = 16) -> list[dict[str, Any]]:
             resolve_bound_ms=resolve_b,
             card=info["name"],
             power_limit=info["power_limit"],
+            **(lv.sweep.reads.counts if getattr(lv.sweep, "reads", None) else {}),
         ))
     return out
 

@@ -75,11 +75,11 @@ def _knn_ell(k):
     return tell.ell_from_csr(a, block_rows=128)
 
 
-def _with_patches(sw):
-    """``sw`` with its blocks' x patches (role sweep8 needs them on the card)."""
+def _with_reads(sw):
+    """``sw`` with its blocks' read sets (role sweep8 needs them on the card)."""
     nb = sw.A.nrows_pad // 128
     return dataclasses.replace(
-        sw, patches=gk.block_patch_tables(sw.A.cols.cpu().numpy(), nb, "cuda"))
+        sw, reads=gk.block_read_tables(sw.A.cols.cpu().numpy(), nb, "cuda"))
 
 
 def _rand(n, dtype, seed):
@@ -120,7 +120,7 @@ def test_block_sweep_matches_plain(et, serial, dtype, tol):
         lagc=torch.full((n_pad,), 0.01, dtype=dtype, device="cuda"),
         order=torch.from_numpy(order.astype(np.int32)).cuda(), phase_ptr=ptr,
         serial=serial, role="sweep7" if serial else "sweep8")
-    sw = sw if serial else _with_patches(sw)
+    sw = sw if serial else _with_reads(sw)
     x, b = _rand(n_pad, dtype, 1), _rand(n_pad, dtype, 2)
     xl = torch.tensor(0.3, dtype=dtype, device="cuda")
     before = gk.COUNTS[sw.role]
@@ -152,7 +152,7 @@ def _sweep(et, dtype, serial, role, k_dtype=None):
         lagc=torch.full((n_pad,), 0.01, dtype=dtype, device="cuda"),
         order=torch.from_numpy(order.astype(np.int32)).cuda(), phase_ptr=ptr,
         serial=serial, role=role)
-    return _with_patches(sw) if role == "sweep8" else sw
+    return _with_reads(sw) if role == "sweep8" else sw
 
 
 @pytest.mark.parametrize("role", ["sweep6", "sweep7"])
@@ -301,31 +301,67 @@ def test_block_smooth_matches_plain(et, bound_rows, role, iters, dtype, kdt, tol
     grid, nk, ne, smem = gk.SMOOTH_INFO[role]
     assert (grid == 1) == (role == "sweep7") and nk in (1, 2) and ne in (0, 1, 2)
     coarse = dict(n_vec=et.nrows_pad, m=bound.m_pad) if role == "sweep7" else dict(
-        cbytes=2, npx=sw.patches.pids.shape[1] * 128)
+        cbytes=2, nrx=sw.reads.rows.shape[1])
     assert smem == gk.smooth_smem_bytes(nk, ne, et.width, dtype, kdt or dtype, **coarse)
 
 
-def test_colored_smooth_walks_a_color_larger_than_its_grid():
-    """The bench pattern at 131,072 rows (1,024 blocks, ~200 a color):
-    each CTA takes several blocks of a color; f32, 3 sweeps, no border."""
-    from meshlessmultigridpoisson_torch import bench
+def _two_color_random(n=131072, width=24, seed=20):
+    """A table whose read sets need more than one round of staging loads:
+    1,024 blocks in two colors (even, odd), each row its diagonal and
+    ``width - 1`` columns drawn at random from the other color's rows, so
+    a block reads ~3,000 distinct x values."""
+    rng = np.random.default_rng(seed)
+    nb = n // 128
+    rows = np.arange(n)
+    odd = (rows // 128) % 2 == 1
+    cols = np.empty((n, width), dtype=np.int64)
+    cols[:, 0] = rows
+    cols[~odd, 1:] = rng.choice(rows[odd], (int((~odd).sum()), width - 1))
+    cols[odd, 1:] = rng.choice(rows[~odd], (int(odd.sum()), width - 1))
+    vals = rng.standard_normal((n, width)) * 0.1
+    vals[:, 0] = 2.0
+    a = sp.coo_matrix((vals.ravel(), (np.repeat(rows, width), cols.ravel())),
+                      shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    order = np.concatenate([np.arange(0, nb, 2), np.arange(1, nb, 2)])
+    return tell.ell_from_csr(a, block_rows=128), order, (0, nb // 2, nb)
 
-    op = bench.build_operator(n=131072, k=20)
-    A = gk.device_ell(op["ell"], torch.float32, "cuda", "spmv6")
+
+@pytest.mark.parametrize("table", ["bench", "random"])
+def test_colored_smooth_walks_a_color_larger_than_its_grid(table):
+    """Each CTA takes several blocks of a color; f32, 3 sweeps, no border;
+    a rerun gives the same bits.  "bench": the bench pattern at 131,072
+    rows (1,024 blocks, ~200 a color); "random": two colors of 512 blocks
+    whose read sets (~3,000 values a block) take two rounds of staging
+    loads."""
+    if table == "bench":
+        from meshlessmultigridpoisson_torch import bench
+
+        op = bench.build_operator(n=131072, k=20)
+        ell, kT, order, ptr = op["ell"], op["kT"], op["order"], op["phase_ptr"]
+    else:
+        ell, order, ptr = _two_color_random()
+        kT = gk.build_oneshot_K(ell, np.full(ell.nrows_pad, 1.2), np.ones(ell.nrows_pad))
+    A = gk.device_ell(ell, torch.float32, "cuda", "spmv6")
     n = A.nrows_pad
-    sw = _with_patches(gk.BlockSweep(
-        A=A, kT=torch.from_numpy(op["kT"]).to("cuda", torch.float32),
+    sw = _with_reads(gk.BlockSweep(
+        A=A, kT=torch.from_numpy(kT).to("cuda", torch.float32),
         lagc=torch.zeros(n, device="cuda"),
-        order=torch.from_numpy(op["order"].astype(np.int32)).cuda(),
-        phase_ptr=op["phase_ptr"], serial=False, role="sweep8"))
+        order=torch.from_numpy(order.astype(np.int32)).cuda(),
+        phase_ptr=ptr, serial=False, role="sweep8"))
+    if table == "random":
+        assert sw.reads.rows.shape[1] > 4 * 512  # more than one round a thread
     x, b = _rand(n, torch.float32, 18), _rand(n, torch.float32, 19)
     xl = torch.zeros((), device="cuda")
     out, _ = gk.block_smooth(sw, x, xl, b, None, 3)
     torch.cuda.synchronize()
-    largest = max(q - p for p, q in zip(op["phase_ptr"], op["phase_ptr"][1:]))
+    largest = max(q - p for p, q in zip(ptr, ptr[1:]))
     assert gk.SMOOTH_INFO["sweep8"][0] < largest
     ref, _ = gk.block_smooth_plain(sw, x, xl, b, None, 3)
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    again, _ = gk.block_smooth(sw, x, xl, b, None, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
 
 
 def test_level_smooth_is_one_launch_on_the_card():
@@ -645,10 +681,13 @@ def test_cli_solve_exact_and_fast_k_on_card():
     rows = rec.extra["per_level"]
     assert [r["kernel"] for r in rows] == rec.extra["level_kernels"]
     assert all(0 < r["sweep_bound_ms"] <= r["sweep_ms"] for r in rows)
-    rec, *_ = cli.run_solve(argv + ["--fast-k"], problem=prob)
+    rec, *_ = cli.run_solve(argv + ["--fast-k", "--profile"], problem=prob)
     assert rec.final_residual < 1e-10
     assert rec.extra["level_kernels"] == ["v7-exact", "v7-exact", "v8-colored"]
     assert rec.extra["level_k_dtypes"] == ["torch.bfloat16"] * 3
+    fine = rec.extra["per_level"][-1]  # the x values its blocks stage
+    assert 0 < fine["staged_x_mean"] <= fine["staged_x_max"] <= fine["patch_rows_max"]
+    assert fine["staged_x_mean"] <= fine["patch_rows_mean"]
 
 
 def _class_sweep(case, dtype, et):
