@@ -21,8 +21,8 @@ In both forms ``matvec64`` / ``matvec32`` optionally replace the outer /
 inner fine operator (``(x, x_lag) -> (y, y_lag)``), as the matrix-free
 compatible PPE does.  Both forms end with the f64 Neumann boundary-row
 re-solve, and append the solve's record (passes, BiCGStab iterations,
-V-cycles, host reads and the time blocked in them) to
-``utils.trace.SOLVES``.
+V-cycles, host reads and the time blocked in them, escalations, passes
+rolled back, inner solves stopped at their cap) to ``utils.trace.SOLVES``.
 """
 
 from __future__ import annotations
@@ -95,6 +95,12 @@ def _inner(hier32_defect, r, rl, inner_tol, inner_iters, matvec32=None):
             st.x_lag[fine_i].to(torch.float64) * rn, its, resid)
 
 
+def _capped(its: int, inner_res: float, inner_tol: float, inner_iters: int) -> bool:
+    """The inner solve stopped at its cap with its residual still at or
+    above its tolerance (a breakdown's -1 sentinel is not capped)."""
+    return its >= inner_iters and inner_res >= inner_tol
+
+
 @trace.recorded
 def solve_mixed(
     op64,
@@ -130,7 +136,7 @@ def solve_mixed(
         r, rl = _residual64(op64, x, xl, b, bl, matvec64)
         res_prev, res = res, _l1(r, rl) / bnorm
         it += 1
-        trace.inner_pass(its)
+        trace.inner_pass(its, capped=_capped(its, inner_res, inner_tol, inner_iters))
         if passes is not None:
             passes.append((its, inner_res, res))
     x = sm.bound_eval_neumann(op64, x, b)
@@ -167,15 +173,16 @@ def solve_mixed_stepped(
     res = _l1(r, rl) / bnorm
     it, escalations = 0, 0
     while res >= tol and it < max_outer:
-        e, el, its, _ = _inner(hier32_defect, r, rl, inner_tol, inner_iters,
-                               matvec32)
+        e, el, its, inner_res = _inner(hier32_defect, r, rl, inner_tol, inner_iters,
+                                       matvec32)
         x_new = torch.where(op64.dirichlet_mask > 0, op64.dirichlet_values, x + e)
         xl_new = xl + el
         r_new, rl_new = _residual64(op64, x_new, xl_new, b, bl, matvec64)
         res_new = _l1(r_new, rl_new) / bnorm
         it += 1
-        trace.inner_pass(its)
         accepted = res_new < res
+        trace.inner_pass(its, capped=_capped(its, inner_res, inner_tol, inner_iters),
+                         rejected=not accepted)
         if accepted:  # accept any improvement
             x, xl, r, rl = x_new, xl_new, r_new, rl_new
             res_prev, res = res, res_new
@@ -188,6 +195,7 @@ def solve_mixed_stepped(
             if escalations >= max_escalations:
                 break
             escalations += 1
+            trace.escalation()
             inner_tol, inner_iters = inner_tol / 10.0, inner_iters * 2
             if log is not None:
                 log(f"stagnating at {res:.3e}: escalating inner solve to "

@@ -42,6 +42,9 @@ RING = 1 << 15
 class SolveTrace:
     passes: int = 0  # outer defect-correction passes
     iters: int = 0  # BiCGStab iterations, summed over the passes
+    escalations: int = 0  # inner solves escalated (tolerance / 10, cap x 2)
+    rejected: int = 0  # passes rolled back: they made the residual worse
+    capped: int = 0  # inner solves stopped at their cap above their tolerance
     vcycles: int = 0
     syncs: int = 0  # host reads of device values (``host_read``, ``input_copy``)
     blocked_s: float = 0.0  # host seconds spent in those reads
@@ -102,11 +105,21 @@ def recorded(fn):
     return wrapper
 
 
-def inner_pass(iters: int) -> None:
-    """One outer pass of the open solve, ``iters`` BiCGStab iterations."""
+def inner_pass(iters: int, capped: bool = False, rejected: bool = False) -> None:
+    """One outer pass of the open solve, ``iters`` BiCGStab iterations;
+    ``capped``: its inner solve stopped at its cap above its tolerance;
+    ``rejected``: the pass was rolled back."""
     if _open is not None:
         _open.passes += 1
         _open.iters += iters
+        _open.capped += capped
+        _open.rejected += rejected
+
+
+def escalation() -> None:
+    """The open solve's inner solve escalated."""
+    if _open is not None:
+        _open.escalations += 1
 
 
 def _blocked(seconds: float) -> None:

@@ -187,6 +187,49 @@ def test_a_level_range_marks_its_ends_on_a_card(monkeypatch, device):
     assert marks == ([0, "work", 0] if device == "cuda" else ["work"])
 
 
+def test_counters_count_escalations_rejections_and_capped_solves(run, monkeypatch):
+    """With an identity outer operator and an inner solve that returns
+    (1 - ratio) r: a pass that made the residual worse is rolled back and
+    counted, the stall it leaves escalates (counted), and an inner solve at
+    its cap above its tolerance is counted capped; ``solve_mixed`` counts
+    its capped solves and never escalates or rolls back."""
+    op64 = run["args"][0]
+    ident = lambda x, xl: (x, xl)  # noqa: E731
+    script = iter([(0.5, "cap", 2.0), (1.5, 3, 0.5), (0.1, "cap", 0.5), (1e-12, 4, 0.5)])
+
+    def inner(hier, r, rl, inner_tol, inner_iters, matvec32=None):
+        ratio, its, res = next(script)
+        its = inner_iters if its == "cap" else its
+        c = 1.0 - ratio
+        return c * r, c * rl, its, res * inner_tol
+
+    monkeypatch.setattr(mixed, "_inner", inner)
+    b = torch.ones(op64.n_pad, dtype=torch.float64)
+    zero = torch.zeros((), dtype=torch.float64)
+    out = mixed.solve_mixed_stepped(op64, None, torch.zeros_like(b), zero, b, zero,
+                                    tol=1e-8, matvec64=ident)
+    rec = trace.SOLVES[-1]
+    # pass 1 capped (res 2 tol), pass 2 rolled back and escalated, pass 3 at
+    # the doubled cap but under its tolerance, pass 4 reaches tol
+    assert out[2] == rec.passes == 4
+    assert (rec.escalations, rec.rejected, rec.capped) == (1, 1, 1)
+    script = iter([(0.5, "cap", 2.0), (0.5, 7, 2.0), (1e-12, "cap", 0.5)])
+    mixed.solve_mixed(op64, None, torch.zeros_like(b), zero, b, zero, tol=1e-8,
+                      matvec64=ident)
+    rec = trace.SOLVES[-1]
+    assert rec.passes == 3 and (rec.escalations, rec.rejected, rec.capped) == (0, 0, 1)
+
+
+def test_a_real_inner_solve_at_its_cap_is_counted(run):
+    """Two BiCGStab iterations a pass cannot reach the inner tolerance: every
+    pass is capped; the record's counters add no host read."""
+    mixed.solve_mixed_stepped(*run["args"], tol=TOL, inner_iters=2, max_outer=3,
+                              max_escalations=0)
+    rec = trace.SOLVES[-1]
+    assert rec.passes == rec.capped > 0 and rec.iters == 2 * rec.passes
+    assert rec.syncs == 2 + 3 * rec.passes + 2 * rec.iters
+
+
 def test_profiler_recording_is_in_the_record(run):
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,7 +285,9 @@ def test_kernels_inside_a_range_are_its_own():
 
 READERS = ("solve.inner_iters", "solve.host_syncs", "solve.host_blocked_share",
            "vcycle.finest_level_ms", "vcycle.lower_levels_ms", "setup.host.stencils_s",
-           "setup.host.stabilize_s", "setup.host.transfers_s")
+           "setup.host.stabilize_s", "setup.host.transfers_s", "solve.escalations",
+           "solve.rejected_passes", "solve.inner_capped_share", "solve.boundary_rows_ms")
+COUNTER_READERS = ("solve.escalations", "solve.rejected_passes", "solve.inner_capped_share")
 
 
 def record(**kw):
@@ -256,7 +301,8 @@ def records(monkeypatch):
     ring = collections.deque(maxlen=trace.RING)
     ring.extend(record(iters=99, syncs=99, blocked_s=9.0) for _ in range(4))
     ring.extend(record(passes=3, iters=30 + i, vcycles=2 * (30 + i), syncs=70 + i,
-                       blocked_s=0.2) for i in range(3))
+                       blocked_s=0.2, escalations=i, rejected=1, capped=i)
+                for i in range(3))
     ring.extend(record(iters=99, vcycles=50, profiled=True) for _ in range(2))
     ring.extend(record(iters=10, vcycles=20, profiled=True, shapes=True) for _ in range(2))
     monkeypatch.setattr(trace, "SOLVES", ring)
@@ -267,7 +313,9 @@ def records(monkeypatch):
                "vcycle L2 up": [("smooth", 400.0)],
                "vcycle L1 down": [("smooth", 100.0)], "vcycle L1 up": [("smooth", 100.0)],
                "vcycle L0 coarse": [("coarse", 200.0)],
-               "sweep8 1024x1024x5": [("smooth", 400.0)]}
+               "sweep8 1024x1024x5": [("smooth", 400.0)],
+               "bound2 3072x3072": [("compact_rows", 3.0), ("compact_rows", 5.0)],
+               "push2 9728x3072": [("compact_rows", 4.0)]}
     solves = [types.SimpleNamespace(seconds=0.25) for _ in range(3)]
     return {"solves": solves, "shapes": {"kernels": kernels}}
 
@@ -276,7 +324,9 @@ EXPECTED = {"solve.inner_iters": 31.0, "solve.host_syncs": 71.0,
             "solve.host_blocked_share": 80.0,
             "vcycle.finest_level_ms": 0.9 / 40, "vcycle.lower_levels_ms": 0.4 / 40,
             "setup.host.stencils_s": 4.0, "setup.host.stabilize_s": 2.0,
-            "setup.host.transfers_s": 1.0}
+            "setup.host.transfers_s": 1.0, "solve.escalations": 1.0,
+            "solve.rejected_passes": 1.0, "solve.inner_capped_share": 100.0 * 3 / 9,
+            "solve.boundary_rows_ms": 0.012 / 2}
 
 
 @pytest.mark.parametrize("name", READERS)
@@ -289,3 +339,11 @@ def test_reader_is_none_without_records(monkeypatch, name):
     monkeypatch.setattr(trace, "SOLVES", collections.deque(maxlen=trace.RING))
     monkeypatch.setattr(trace, "SPANS", {})
     assert Spec().reader(name).read({"solves": [], "shapes": None}) is None
+
+
+@pytest.mark.parametrize("name", COUNTER_READERS)
+def test_counter_reader_is_none_on_records_without_the_counter(monkeypatch, name):
+    """A program whose records predate the counter reads None."""
+    old = types.SimpleNamespace(passes=3, iters=30, profiled=False, shapes=False)
+    monkeypatch.setattr(trace, "SOLVES", collections.deque([old] * 3, maxlen=trace.RING))
+    assert Spec().reader(name).read({"solves": [None] * 3, "shapes": None}) is None
